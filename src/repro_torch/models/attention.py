@@ -1,0 +1,77 @@
+"""Attention: segment-aware (packed) attention and the KV-cache decode step.
+
+The port of ``repro.models.attention``, in its layouts (b, s, h, d):
+  * ``segment_attention``      — prefill/forward attention; goes through
+                                 ``kernels.ops.packed_attention`` (the CUDA
+                                 kernel on the card).
+  * ``full_segment_attention`` — unchunked plain oracle (tests).
+  * ``decode_attention``       — one-token step against a KV cache; goes
+                                 through ``kernels.ops.decode_attention``.
+
+Packing semantics: segment id 0 marks padding; q attends to k iff
+``seg_q == seg_k != 0`` and (causal) buffer index ``k <= q``.  GQA K/V are
+passed to the kernels unexpanded, and as strided views, never copies.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+
+
+def expand_kv(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(b, s, kh, d) -> (b, s, h, d) by repeating each kv head h/kh times."""
+    kh = x.shape[2]
+    if kh == num_heads:
+        return x
+    if num_heads % kh:
+        raise ValueError(f"num_heads {num_heads} not a multiple of {kh}")
+    return x.repeat_interleave(num_heads // kh, dim=2)
+
+
+def full_segment_attention(q, k, v, q_seg, kv_seg, *, causal: bool = True):
+    """Unchunked oracle.  q: (b,sq,h,d); k,v: (b,sk,h,d)."""
+    sq, d = q.shape[1], q.shape[3]
+    sk = k.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * d ** -0.5
+    mask = (q_seg[:, None, :, None] == kv_seg[:, None, None, :]) \
+        & (kv_seg[:, None, None, :] > 0)
+    if causal:
+        q_idx = torch.arange(sq, device=q.device)
+        k_idx = torch.arange(sk, device=q.device)
+        mask = mask & (q_idx[:, None] >= k_idx[None, :])[None, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    m = torch.amax(logits, -1, keepdim=True)
+    p = torch.where(mask, torch.exp(logits - m), 0.0)
+    l = torch.sum(p, -1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", p / torch.clamp(l, min=1e-20),
+                       v.float())
+    valid = (q_seg > 0)[:, :, None, None]
+    return torch.where(valid, out, 0.0).to(q.dtype)
+
+
+def segment_attention(q, k, v, q_seg, kv_seg, *, causal: bool = True):
+    """q: (b,sq,h,d); k,v: (b,sk,kh,d) with kh dividing h; segs (b,s) int32.
+
+    Returns (b,sq,h,d) in q's dtype.  The JAX package's kv-chunk knob has
+    no counterpart: the kernel tiles the keys itself.
+    """
+    out = ops.packed_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), q_seg, kv_seg,
+                               causal=causal)
+    return out.transpose(1, 2)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len):
+    """One-step decode.  q: (b,1,h,d); caches: (b,S,kh,d) (e.g. one layer's
+    slice of the model cache); cache_len: (b,) int32 valid positions.
+
+    Returns (b,1,h,d) in q's dtype; the softmax runs in float32 whatever
+    the cache's dtype, as the JAX package's promoted einsum does.
+    """
+    out = ops.decode_attention(q[:, 0], k_cache.transpose(1, 2),
+                               v_cache.transpose(1, 2), cache_len)
+    return out[:, None]

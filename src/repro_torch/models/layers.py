@@ -1,0 +1,130 @@
+"""Shared building blocks: the port of ``repro.models.layers``.
+
+Plain functions over nested dicts of tensors declared with ParamDef, with
+the JAX package's numerics: norms and RoPE compute in float32 and return
+the input's dtype; matrix products run in the operands' dtype.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.params import (
+    EMBED, HEADS, HEAD_DIM, KV_HEADS, MLP, VOCAB, ParamDef,
+)
+
+
+# --------------------------------------------------------------------- norm
+def rmsnorm_def(dim: int) -> dict:
+    return {"scale": ParamDef((dim,), (None,), init="ones",
+                              dtype=torch.float32)}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * p["scale"]
+    return out.to(dt)
+
+
+# --------------------------------------------------------------------- rope
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int32.
+
+    Split-halves convention: the first and second halves of head_dim are
+    the real and imaginary parts; angles are computed in float32.
+    """
+    head_dim = x.shape[-1]
+    freqs = rope_freqs(head_dim, theta, x.device)            # (hd/2,)
+    angles = positions[..., None].float() * freqs            # (..., s, hd/2)
+    cos = torch.cos(angles)[..., None, :]                    # (..., s, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- mlp
+def swiglu_def(d_model: int, d_ff: int) -> dict:
+    return {
+        "w_gate": ParamDef((d_model, d_ff), (EMBED, MLP), init="scaled"),
+        "w_up": ParamDef((d_model, d_ff), (EMBED, MLP), init="scaled"),
+        "w_down": ParamDef((d_ff, d_model), (MLP, EMBED), init="scaled"),
+    }
+
+
+def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+# --------------------------------------------------------------- embeddings
+def embedding_def(vocab: int, d_model: int) -> dict:
+    return {"table": ParamDef((vocab, d_model), (VOCAB, EMBED), scale=1.0)}
+
+
+def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["table"].T
+
+
+# --------------------------------------------------- attention projections
+def attention_proj_def(cfg) -> dict:
+    hd = cfg.resolved_head_dim()
+    d = {
+        "wq": ParamDef((cfg.d_model, cfg.num_heads, hd),
+                       (EMBED, HEADS, HEAD_DIM), init="scaled"),
+        "wk": ParamDef((cfg.d_model, cfg.num_kv_heads, hd),
+                       (EMBED, KV_HEADS, HEAD_DIM), init="scaled"),
+        "wv": ParamDef((cfg.d_model, cfg.num_kv_heads, hd),
+                       (EMBED, KV_HEADS, HEAD_DIM), init="scaled"),
+        "wo": ParamDef((cfg.num_heads, hd, cfg.d_model),
+                       (HEADS, HEAD_DIM, EMBED), init="scaled"),
+    }
+    if cfg.qk_norm:
+        d["q_norm"] = rmsnorm_def(hd)
+        d["k_norm"] = rmsnorm_def(hd)
+    return d
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matrix product."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def qkv_project(p: dict, cfg, x: torch.Tensor,
+                positions: Optional[torch.Tensor]) -> tuple:
+    """x: (b, s, d) -> q (b,s,H,hd), k/v (b,s,KH,hd) with qk_norm + RoPE.
+
+    qk-norm runs before RoPE, as in the JAX package.
+    """
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_out_project(p: dict, attn: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matrix product."""
+    h, k, d = p["wo"].shape
+    return attn.flatten(-2) @ p["wo"].reshape(h * k, d)

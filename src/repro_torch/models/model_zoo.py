@@ -1,0 +1,78 @@
+"""The model as an ``nn.Module``: the port of ``repro.models.model_zoo``.
+
+``Model`` holds the parameter tree as (non-trainable) parameters whose
+``state_dict`` keys are the JAX tree's key paths joined by ``.``
+(``embed.table``, ``layers.attn.wq``, ...), with the stacked ``layers``
+dim kept, so the weight bridge is one to one.  Only the dense family is
+ported; other families raise and point at ``ROADMAP.md``.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import params as pdefs
+from repro_torch.models import transformer
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors held as parameters named by key path."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(name, ParamTree(value))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+    def tree(self) -> dict:
+        """The nested dict of parameter tensors (no copies)."""
+        out = dict(self.named_parameters(recurse=False))
+        out.update({n: m.tree() for n, m in self.named_children()})
+        return out
+
+
+class Model(ParamTree):
+    """A dense LM: parameters plus the forward / prefill / decode steps."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__(params)
+        self.cfg = cfg
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def forward(self, batch):
+        return transformer.forward(self.tree(), self.cfg, batch)
+
+    def prefill(self, batch):
+        return transformer.prefill(self.tree(), self.cfg, batch)
+
+    def decode_step(self, cache, tokens, pos: int):
+        return transformer.decode_step(self.tree(), self.cfg, cache, tokens,
+                                       pos)
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
+        return transformer.init_cache(self.cfg, batch, max_len, dtype,
+                                      self.device)
+
+
+def model_defs(cfg: ModelConfig) -> dict:
+    """The ParamDef tree of ``cfg`` (shapes only, nothing allocated)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
+            "yet; see ROADMAP.md")
+    return transformer.lm_defs(cfg)
+
+
+def build_model(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.float32) -> Model:
+    """A model with weights drawn from ``generator``, on its device."""
+    defs = model_defs(cfg)
+    return Model(cfg, pdefs.init_params(defs, generator, dtype,
+                                        generator.device))

@@ -1,0 +1,107 @@
+"""Parameter definitions: the port's copy of ``repro.models.params``.
+
+Models declare a tree (nested dicts) of :class:`ParamDef`.  The tree's
+key paths, shapes and init rules are those of the JAX package, so a JAX
+parameter tree maps one to one onto the port's ``state_dict`` (paths
+joined by ``.``).  Logical axis names are kept as documentation of each
+dim; the port runs on one device and shards nothing.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+# Logical axis names used across the model zoo (see repro.models.params).
+EMBED = "embed"
+MLP = "mlp"
+HEADS = "heads"
+KV_HEADS = "kv_heads"
+HEAD_DIM = "head_dim"
+VOCAB = "vocab"
+LAYERS = "layers"
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Declarative description of one parameter tensor."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"        # normal | zeros | ones | scaled | uniform
+    scale: float | None = None  # stddev override for "normal"/"scaled"
+    dtype: Any = None           # override container dtype (e.g. fp32 norms)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(
+                f"shape {self.shape} and axes {self.axes} rank mismatch")
+
+
+def _fan_in(shape: tuple[int, ...]) -> int:
+    # Heuristic: all-but-last dims are fan-in for projection matrices.
+    if len(shape) == 1:
+        return shape[0]
+    return int(np.prod(shape[:-1]))
+
+
+def init_param(defn: ParamDef, generator: torch.Generator, dtype,
+               device) -> torch.Tensor:
+    dt = defn.dtype or dtype
+    if defn.init == "zeros":
+        return torch.zeros(defn.shape, dtype=dt, device=device)
+    if defn.init == "ones":
+        return torch.ones(defn.shape, dtype=dt, device=device)
+    if defn.init == "uniform":
+        lim = defn.scale or 1.0
+        out = torch.empty(defn.shape, dtype=dt, device=device)
+        return out.uniform_(-lim, lim, generator=generator)
+    if defn.init == "scaled":  # 1/sqrt(fan_in) normal
+        std = (defn.scale or 1.0) / math.sqrt(max(_fan_in(defn.shape), 1))
+    else:
+        std = defn.scale if defn.scale is not None else 0.02
+    out = torch.randn(defn.shape, dtype=torch.float32, device=device,
+                      generator=generator)
+    return out.mul_(std).to(dt)
+
+
+def tree_map(fn: Callable, tree):
+    """Apply ``fn`` to every leaf of a nested dict, in sorted-key order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def tree_leaves(tree, prefix: str = ""):
+    """``(dotted path, leaf)`` pairs in sorted-key order, as jax.tree does."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def init_params(defs, generator: torch.Generator, dtype=torch.bfloat16,
+                device="cuda"):
+    """Materialize a ParamDef tree into tensors on ``device``.
+
+    Leaves are drawn in sorted-key order from one ``generator``, which must
+    live on ``device``.  The numbers differ from ``jax.random``'s; a test
+    that compares with JAX hands the JAX tree over with
+    ``models.convert.params_from_jax`` instead.
+    """
+    return tree_map(lambda d: init_param(d, generator, dtype, device), defs)
+
+
+def stacked(defs, n: int):
+    """Add a leading scan ("layers") dim to every ParamDef in the tree."""
+    return tree_map(
+        lambda d: ParamDef((n,) + d.shape, (LAYERS,) + d.axes, d.init,
+                           d.scale, d.dtype), defs)
+
+
+def param_count(defs) -> int:
+    return sum(int(np.prod(d.shape)) for _, d in tree_leaves(defs))

@@ -1,0 +1,142 @@
+"""Decoder-only transformer LM, dense family: the port of
+``repro.models.transformer``.
+
+Three entry points: ``forward`` (packed batch -> logits), ``prefill``
+(prompt -> last-token logits and KV cache), ``decode_step`` (one token
+against the full cache).  Layers keep the JAX package's stacked leaves
+(leading ``layers`` dim); the scan over them is a Python loop over views.
+Attention runs through the CUDA kernels on the card (``models.attention``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.attention import decode_attention, segment_attention
+from repro_torch.models.params import EMBED, VOCAB, ParamDef, stacked, tree_map
+
+
+# ------------------------------------------------------------------- defs
+def layer_def(cfg: ModelConfig) -> dict:
+    if cfg.family == "moe" or cfg.num_experts > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE block is not ported to repro_torch yet; "
+            "see ROADMAP.md")
+    return {
+        "attn_norm": L.rmsnorm_def(cfg.d_model),
+        "attn": L.attention_proj_def(cfg),
+        "mlp_norm": L.rmsnorm_def(cfg.d_model),
+        "mlp": L.swiglu_def(cfg.d_model, cfg.d_ff),
+    }
+
+
+def lm_defs(cfg: ModelConfig) -> dict:
+    defs = {
+        "embed": L.embedding_def(cfg.vocab_size, cfg.d_model),
+        "layers": stacked(layer_def(cfg), cfg.num_layers),
+        "final_norm": L.rmsnorm_def(cfg.d_model),
+    }
+    if not cfg.tied_embeddings:
+        defs["unembed"] = ParamDef(
+            (cfg.d_model, cfg.vocab_size), (EMBED, VOCAB), init="scaled")
+    return defs
+
+
+# ----------------------------------------------------------------- blocks
+def _layer(params, i: int) -> dict:
+    """Layer ``i``'s leaves: views into the stacked tensors."""
+    return tree_map(lambda t: t[i], params["layers"])
+
+
+def _attn_block(lp, cfg, h, segment_ids, positions):
+    x = L.rmsnorm(lp["attn_norm"], h, cfg.norm_eps)
+    q, k, v = L.qkv_project(lp["attn"], cfg, x, positions)
+    attn = segment_attention(q, k, v, segment_ids, segment_ids, causal=True)
+    return L.attn_out_project(lp["attn"], attn), k, v
+
+
+def _ffn_block(lp, cfg, h):
+    x = L.rmsnorm(lp["mlp_norm"], h, cfg.norm_eps)
+    return L.swiglu(lp["mlp"], x)
+
+
+def _unembed(params, cfg, h):
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    if cfg.tied_embeddings:
+        return L.unembed(params["embed"], h)
+    return h @ params["unembed"]
+
+
+# ------------------------------------------------------------------ train
+def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """batch: tokens/segment_ids/positions (b, s) int32 tensors.
+    Returns (logits (b, s, vocab), aux_loss scalar: 0 for a dense model)."""
+    h = L.embed(params["embed"], batch["tokens"])
+    seg = batch["segment_ids"]
+    pos = batch["positions"]
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        h = h + _attn_block(lp, cfg, h, seg, pos)[0]
+        h = h + _ffn_block(lp, cfg, h)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _unembed(params, cfg, h), aux
+
+
+# ---------------------------------------------------------------- serving
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> dict:
+    hd = cfg.resolved_head_dim()
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill(params, cfg: ModelConfig, batch):
+    """Run the full prompt, return (last-token logits, populated cache)."""
+    h = L.embed(params["embed"], batch["tokens"])
+    seg = batch["segment_ids"]
+    pos = batch["positions"]
+    kv = None
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        attn, k, v = _attn_block(lp, cfg, h, seg, pos)
+        if kv is None:
+            kv = {n: torch.empty((cfg.num_layers,) + t.shape, dtype=t.dtype,
+                                 device=t.device)
+                  for n, t in (("k", k), ("v", v))}
+        kv["k"][i] = k
+        kv["v"][i] = v
+        h = h + attn
+        h = h + _ffn_block(lp, cfg, h)
+    return _unembed(params, cfg, h[:, -1:, :]), kv
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
+    """One decode step.  tokens: (b, 1); pos: the index the new token is
+    written at (cache positions <= pos are attended).
+
+    The cache is updated in place (JAX's ``dynamic_update_slice`` returns
+    a new one): each layer writes its new k/v row into its slice of the
+    (layers, b, S, kh, hd) buffers, and attention reads that slice through
+    strides.  Returns (logits (b, 1, vocab), the same cache dict).
+    """
+    S = cache["k"].shape[2]
+    if not 0 <= pos < S:
+        raise IndexError(f"decode position {pos} outside cache of {S}")
+    b = tokens.shape[0]
+    h = L.embed(params["embed"], tokens)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=h.device)
+    cache_len = torch.full((b,), pos + 1, dtype=torch.int32, device=h.device)
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        x = L.rmsnorm(lp["attn_norm"], h, cfg.norm_eps)
+        q, k, v = L.qkv_project(lp["attn"], cfg, x, positions)
+        ck, cv = cache["k"][i], cache["v"][i]           # (b, S, kh, hd)
+        ck[:, pos] = k[:, 0]                            # casts to the cache's
+        cv[:, pos] = v[:, 0]                            # dtype, as astype does
+        attn = decode_attention(q, ck, cv, cache_len)
+        h = h + L.attn_out_project(lp["attn"], attn)
+        h = h + _ffn_block(lp, cfg, h)
+    return _unembed(params, cfg, h), cache

@@ -1,0 +1,155 @@
+"""Port kernels' plain versions vs the JAX package's Pallas kernels and refs.
+
+The same numpy inputs (from a seed) go through the Pallas kernel (interpret
+mode), ``repro.kernels.ref`` and ``repro_torch.kernels.ref`` on the CPU.
+Tolerances are ``TOL`` of tests/test_kernels.py: 2e-5 in float32 and 2e-2
+in bfloat16 (atol and rtol).  The CUDA kernels themselves are checked on
+the card by chip_smoke.py.
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_decode import flash_decode as pallas_flash_decode
+from repro.kernels.packed_attention import packed_flash_attention
+
+from repro_torch.kernels import flash_decode, ops, packed_attention
+from repro_torch.kernels import ref
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _segs(rng, b, s):
+    """Packed rows: several segments each, trailing padding on some rows."""
+    out = np.zeros((b, s), np.int32)
+    for i in range(b):
+        pos, sid = 0, 1
+        while pos < s:
+            ln = int(rng.integers(4, max(s // 2, 5)))
+            out[i, pos:pos + ln] = sid
+            pos += ln
+            sid += 1
+        if rng.random() < 0.5:
+            out[i, -int(rng.integers(1, s // 4 + 1)):] = 0
+    return out
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values as a jnp array and a torch tensor of ``dtype``."""
+    return (jnp.asarray(x, JNP[dtype]),
+            torch.from_numpy(x).to(TORCH[dtype]))
+
+
+def _close(got: torch.Tensor, exp, dtype: str):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(exp, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,h,kh,s,d", [
+    (2, 4, 2, 256, 64),    # GQA
+    (1, 8, 1, 128, 32),    # MQA
+    (2, 2, 2, 128, 128),   # MHA
+    (1, 6, 3, 128, 80),    # odd head_dim
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_packed_attention_ref_matches_pallas(b, h, kh, s, d, dtype, causal):
+    rng = np.random.default_rng([b, h, kh, s, d])
+    jq, tq = _pair(rng.normal(size=(b, h, s, d)).astype(np.float32), dtype)
+    jk, tk = _pair(rng.normal(size=(b, kh, s, d)).astype(np.float32), dtype)
+    jv, tv = _pair(rng.normal(size=(b, kh, s, d)).astype(np.float32), dtype)
+    seg = _segs(rng, b, s)
+    tseg = torch.from_numpy(seg)
+    got = ref.packed_attention_ref(tq, tk, tv, tseg, tseg, causal=causal)
+    assert got.dtype == TORCH[dtype] and got.shape == (b, h, s, d)
+    pallas = packed_flash_attention(jq, jk, jv, seg, seg, causal=causal,
+                                    block_q=128, block_k=128)
+    _close(got, pallas, dtype)
+    _close(got, jref.packed_attention_ref(jq, jk, jv, seg, seg,
+                                          causal=causal), dtype)
+    # on CPU tensors the public op is exactly the plain version
+    assert torch.equal(ops.packed_attention(tq, tk, tv, tseg, tseg,
+                                            causal=causal), got)
+
+
+@pytest.mark.parametrize("sq,sk,causal", [
+    (200, 200, True),      # ragged: no multiple of any tile
+    (96, 160, False),      # cross-attention shape, sq != sk
+])
+def test_packed_attention_ref_ragged_and_rectangular(sq, sk, causal):
+    rng = np.random.default_rng([sq, sk])
+    b, h, kh, d = 2, 4, 2, 32
+    jq, tq = _pair(rng.normal(size=(b, h, sq, d)).astype(np.float32),
+                   "float32")
+    jk, tk = _pair(rng.normal(size=(b, kh, sk, d)).astype(np.float32),
+                   "float32")
+    jv, tv = _pair(rng.normal(size=(b, kh, sk, d)).astype(np.float32),
+                   "float32")
+    q_seg = _segs(rng, b, sq)
+    kv_seg = q_seg if sq == sk else np.ones((b, sk), np.int32)
+    got = ref.packed_attention_ref(tq, tk, tv, torch.from_numpy(q_seg),
+                                   torch.from_numpy(kv_seg), causal=causal)
+    _close(got, jref.packed_attention_ref(jq, jk, jv, q_seg, kv_seg,
+                                          causal=causal), "float32")
+
+
+def test_packed_attention_ref_blocks_cross_segment_leakage():
+    """Zeroing one segment's V must not change another segment's output."""
+    rng = np.random.default_rng(5)
+    b, h, s, d = 1, 2, 128, 32
+    q = torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32))
+    seg = torch.ones((b, s), dtype=torch.int32)
+    seg[:, 64:] = 2
+    out1 = ref.packed_attention_ref(q, k, v, seg, seg)
+    v2 = v.clone()
+    v2[:, :, 64:, :] = 0.0
+    out2 = ref.packed_attention_ref(q, k, v2, seg, seg)
+    torch.testing.assert_close(out1[:, :, :64], out2[:, :, :64], atol=1e-6,
+                               rtol=0)
+    assert not torch.allclose(out1[:, :, 64:], out2[:, :, 64:])
+
+
+@pytest.mark.parametrize("b,h,kh,S,d,blk", [
+    (2, 8, 2, 512, 64, 256),
+    (4, 4, 4, 256, 32, 64),
+    (1, 16, 2, 1024, 128, 256),
+])
+@pytest.mark.parametrize("q_dtype,c_dtype", [
+    ("float32", "float32"), ("bfloat16", "bfloat16"),
+    ("bfloat16", "float32"),   # the serve path: bf16 q, fp32 cache
+])
+def test_flash_decode_ref_matches_pallas(b, h, kh, S, d, blk, q_dtype,
+                                         c_dtype):
+    rng = np.random.default_rng([b, h, kh, S, d])
+    jq, tq = _pair(rng.normal(size=(b, h, d)).astype(np.float32), q_dtype)
+    jk, tk = _pair(rng.normal(size=(b, kh, S, d)).astype(np.float32),
+                   c_dtype)
+    jv, tv = _pair(rng.normal(size=(b, kh, S, d)).astype(np.float32),
+                   c_dtype)
+    clen = rng.integers(1, S, size=(b,)).astype(np.int32)
+    got = ref.flash_decode_ref(tq, tk, tv, torch.from_numpy(clen))
+    assert got.dtype == TORCH[q_dtype] and got.shape == (b, h, d)
+    _close(got, pallas_flash_decode(jq, jk, jv, clen, block_k=blk), q_dtype)
+    _close(got, jref.flash_decode_ref(jq, jk, jv, clen), q_dtype)
+    assert torch.equal(
+        ops.decode_attention(tq, tk, tv, torch.from_numpy(clen)), got)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """No fallback: the kernel wrappers launch on CUDA tensors or raise."""
+    q = torch.zeros((1, 2, 8, 16))
+    seg = torch.ones((1, 8), dtype=torch.int32)
+    before = (packed_attention.launches, flash_decode.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        packed_attention.packed_attention(q, q, q, seg, seg)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode.flash_decode(q[:, :, 0], q, q,
+                                  torch.ones((1,), dtype=torch.int32))
+    assert (packed_attention.launches, flash_decode.launches) == before
