@@ -4,21 +4,29 @@
 
 Phases (any failure raises, and the exit code is not 0):
   1. device  — the card's name, count and power limit; no card, no run.
-  2. build   — nvcc builds every CUDA kernel from ``src/repro_torch/kernels/
-               csrc`` (in parallel) into ``build/repro_torch_kernels``.
+  2. build   — nvcc builds the three CUDA kernels of ``src/repro_torch/
+               kernels/csrc`` (in parallel) into ``build/repro_torch_kernels``.
   3. check   — each kernel against its plain PyTorch version on the card,
-               at qwen3-8b head shapes and more, TF32 off; then reduced
-               qwen3-8b prefill + decode on the card against the CPU.
-  4. serve   — ``repro_torch.launch.serve`` on qwen3-8b at its published
-               width and depth (36 layers, d_model 4096), random weights
-               from a seed: batch 4, prompt 512, 32 greedy tokens.  The
-               kernels' launch counts must show the path went through them.
-  5. trace   — torch.profiler over decode steps of the serve run's own
-               model and cache, at its own cache positions: the device's
-               busy share and the kernels that take its time.
+               TF32 off: packed_attention and flash_decode at qwen3-8b head
+               shapes and more, wkv6 at rwkv6-3b head shapes (packed
+               resets, a ragged length, the final state) and more; then
+               reduced qwen3-8b and reduced rwkv6-3b prefill + decode on
+               the card against the CPU.
+  4. serve   — ``repro_torch.launch.serve`` on qwen3-8b (36 layers, d_model
+               4096) and then on rwkv6-3b (32 layers, d_model 2560), each at
+               its published width and depth with random weights from a
+               seed: batch 4, prompt 512, 32 greedy tokens.  Every kernel's
+               launch count is set to 0 just before each run and read just
+               after; the counts must show the path went through the
+               kernels.
+  5. trace   — torch.profiler over decode steps of each serve run's own
+               model and cache, and over one rwkv6-3b prefill (where wkv6
+               runs): the device's busy share and the kernels that take
+               its time.
   6. time    — each kernel at the serving shapes (CUDA events around a
                CUDA-graph replay, and around eager calls), beside its plain
-               version, one PyTorch library call, and its bound.
+               version, one PyTorch library call where there is one, and
+               its bound.
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -41,7 +49,9 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 # differ by at most one bf16 rounding (2**-8 relative), which 2e-3 covers
 # for outputs below 1 in magnitude.
 SERVE_DECODE_TOL = 2e-3
+WKV_TOL = (5e-5, 5e-4)             # atol, rtol: tests/test_kernels.py:106
 ARCH, BATCH, PROMPT, GEN = "qwen3-8b", 4, 512, 32
+RWKV_ARCH = "rwkv6-3b"             # served at the same batch, prompt, gen
 
 
 def log(msg: str):
@@ -99,13 +109,15 @@ def _bshd(rng, b, s, h, d, dtype):
     return x.to(dtype).transpose(1, 2)
 
 
-def _check(name, got, exp, tol) -> float:
+def _check(name, got, exp, tol, rtol=None) -> float:
+    """allclose at atol = ``tol`` and rtol = ``rtol`` (default ``tol``)."""
+    rtol = tol if rtol is None else rtol
     if got.dtype != exp.dtype or got.shape != exp.shape:
         raise AssertionError(f"{name}: got {got.dtype} {tuple(got.shape)}, "
                              f"want {exp.dtype} {tuple(exp.shape)}")
     err = (got.float() - exp.float()).abs().max().item()
-    ok = torch.allclose(got.float(), exp.float(), atol=tol, rtol=tol)
-    log(f"[check] {name}: max_abs_err={err:.3e} tol={tol:g} (atol=rtol) "
+    ok = torch.allclose(got.float(), exp.float(), atol=tol, rtol=rtol)
+    log(f"[check] {name}: max_abs_err={err:.3e} atol={tol:g} rtol={rtol:g} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
@@ -167,7 +179,9 @@ def phase_check():
             _check(f"flash_decode b={b} h={h} kh={kh} S={S} d={d} "
                    f"q={str(q_dt)[6:]} cache={str(c_dt)[6:]} "
                    f"cache_len={clen.tolist()}", got, exp, TOL[q_dt])
+    _check_wkv6()
     _check_reduced_slice()
+    _check_reduced_rwkv()
 
 
 def _check_reduced_slice():
@@ -202,31 +216,185 @@ def _check_reduced_slice():
            2e-3)
 
 
+def _wkv6_inputs(rng, b, s, h, dk, seg=None):
+    """r, k, v, loga (b, s, h, dk) and u (h, dk), float32 on the card, at
+    the scales of tests/test_kernels.py.  With packed segment ids ``seg``
+    the resets are the model's, ``(seg != prev) | (seg == 0)``, and k is
+    zeroed on padding as the model does; else the first token resets."""
+    def normal(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device="cuda") * 0.5
+    r, k, v = (normal(b, s, h, dk) for _ in range(3))
+    loga = -torch.exp(normal(b, s, h, dk))
+    u = normal(h, dk)
+    if seg is None:
+        reset = torch.zeros((b, s), dtype=torch.bool, device="cuda")
+        reset[:, 0] = True
+        return r, k, v, loga, u, reset
+    seg = torch.tensor(seg, device="cuda")
+    prev = torch.nn.functional.pad(seg[:, :-1], (1, 0))
+    k = k * (seg > 0)[..., None, None]
+    return r, k, v, loga, u, (seg != prev) | (seg == 0)
+
+
+def _check_wkv6():
+    """wkv6 against the sequential oracle ``ref.wkv6_ref`` and the chunked
+    plain version ``ref.wkv6_chunked`` (o and the final state), at
+    atol 5e-5 / rtol 5e-4 (tests/test_kernels.py:106)."""
+    from repro_torch.kernels import ref, wkv6
+    rng = np.random.default_rng(4)
+    # rwkv6-3b heads, ragged s: resets at row starts, mid-chunk segment
+    # starts and a padded tail
+    b, h, s, dk = 4, 40, 1000, 64
+    args = _wkv6_inputs(rng, b, s, h, dk, _segs(rng, b, s))
+    got = _launch(wkv6, wkv6.wkv6, *args, chunk=64)
+    _check(f"wkv6 b={b} h={h} s={s} dk={dk} chunk=64 packed, vs wkv6_ref",
+           got, ref.wkv6_ref(*args), *WKV_TOL)
+    # the final state, at a length the chunked plain version takes; the
+    # padded tail becomes one more segment (starting mid-chunk), so the
+    # state at the end is live rather than reset to zero by padding
+    s = 1024
+    seg = _segs(rng, b, s)
+    for row in seg:
+        row[row == 0] = row.max() + 1
+    args = _wkv6_inputs(rng, b, s, h, dk, seg)
+    o, state = _launch(wkv6, wkv6.wkv6, *args, chunk=64, return_state=True)
+    o_exp, state_exp = ref.wkv6_chunked(*args[:5], chunk=64, reset=args[5],
+                                        return_state=True)
+    _check(f"wkv6 b={b} h={h} s={s} dk={dk} packed, o vs wkv6_chunked", o,
+           o_exp, *WKV_TOL)
+    _check(f"wkv6 b={b} h={h} s={s} dk={dk} packed, final state vs "
+           "wkv6_chunked", state, state_exp, *WKV_TOL)
+    # the same with slow decays (loga / 50, about exp(-0.02) a token), so
+    # the state carries across several chunks instead of fading in one
+    args = args[:3] + (args[3] / 50,) + args[4:]
+    o, state = _launch(wkv6, wkv6.wkv6, *args, chunk=64, return_state=True)
+    o_exp, state_exp = ref.wkv6_chunked(*args[:5], chunk=64, reset=args[5],
+                                        return_state=True)
+    name = f"wkv6 b={b} h={h} s={s} dk={dk} packed, slow decays"
+    _check(f"{name}, vs wkv6_ref", o, ref.wkv6_ref(*args), *WKV_TOL)
+    _check(f"{name}, o vs wkv6_chunked", o, o_exp, *WKV_TOL)
+    _check(f"{name}, final state vs wkv6_chunked", state, state_exp,
+           *WKV_TOL)
+    # tests/test_kernels.py:84-98 (mid-chunk resets), and s below the chunk
+    for b, h, s, dk, chunk in [(2, 3, 128, 32, 32), (1, 2, 192, 64, 64),
+                               (2, 2, 64, 16, 16), (2, 4, 40, 64, 64)]:
+        args = _wkv6_inputs(rng, b, s, h, dk)
+        args[5][0, s // 3] = True
+        args[5][-1, s // 2 + 3] = True
+        rst = args[5].to(torch.int32) if dk == 16 else args[5]
+        if dk == 32:    # (b, h, s, dk) buffers seen as (b, s, h, dk)
+            args = tuple(a.transpose(1, 2).contiguous().transpose(1, 2)
+                         for a in args[:4]) + args[4:]
+        o, state = _launch(wkv6, wkv6.wkv6, *args[:5], rst, chunk=chunk,
+                           return_state=True)
+        name = f"wkv6 b={b} h={h} s={s} dk={dk} chunk={chunk} " \
+            f"reset={str(rst.dtype)[6:]} r.stride={args[0].stride()}"
+        _check(f"{name}, vs wkv6_ref", o, ref.wkv6_ref(*args), *WKV_TOL)
+        o_exp, state_exp = ref.wkv6_chunked(*args[:5], chunk=chunk,
+                                            reset=args[5], return_state=True)
+        _check(f"{name}, o vs wkv6_chunked", o, o_exp, *WKV_TOL)
+        _check(f"{name}, final state vs wkv6_chunked", state, state_exp,
+               *WKV_TOL)
+
+
+def _check_reduced_rwkv():
+    """Reduced rwkv6-3b, float32: prefill of a packed batch (segment starts
+    mid-chunk, padding at a row's end) and 24 decode steps, the WKV6 kernel
+    on the card against the plain versions on the CPU, same weights; the
+    zero-initialised LoRA up-projections get small random values so the
+    data-dependent mix and decay are live.  Logits and the prefill states
+    to 2e-3 (tests/test_models.py); prefill launches the kernel once per
+    layer."""
+    from repro_torch.configs.rwkv6_3b import reduced
+    from repro_torch.kernels import wkv6
+    from repro_torch.models.model_zoo import build_model
+    cfg = reduced()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    gpu = build_model(cfg, gen)
+    for name, prm in gpu.named_parameters():
+        if ".mixB_" in name or name.endswith("loraB_w"):
+            prm.data.normal_(0.0, 0.1, generator=gen)
+    cpu = build_model(cfg, torch.Generator().manual_seed(2))
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(2)
+    b, s, steps = 2, 48, 24                # three chunks of 16
+    tokens = rng.integers(1, cfg.vocab_size, (b, s))
+    seg = np.ones((b, s), np.int32)
+    seg[0, 20:42], seg[0, 42:] = 2, 0
+    seg[1, 7:] = 2
+    logits, states = [], []
+    with torch.no_grad():
+        for m in (gpu, cpu):
+            batch = {"tokens": torch.tensor(tokens, dtype=torch.int32,
+                                            device=m.device),
+                     "segment_ids": torch.tensor(seg, device=m.device)}
+            before = wkv6.launches
+            pre, st = m.prefill(batch)
+            torch.cuda.synchronize()
+            launched = wkv6.launches - before
+            want = cfg.num_layers if m is gpu else 0
+            if launched != want:
+                raise AssertionError(f"reduced rwkv6-3b prefill on "
+                                     f"{m.device} launched wkv6 {launched} "
+                                     f"times, not {want}")
+            cache = m.init_cache(b, s, torch.float32)
+            outs = [pre]
+            for t in range(steps):
+                dec, cache = m.decode_step(cache, batch["tokens"][:, t:t + 1],
+                                           t)
+                outs.append(dec)
+            logits.append(torch.cat(outs, 1).cpu())
+            states.append({n: x.cpu() for n, x in st.items()})
+    _check("reduced rwkv6-3b slice, card vs CPU plain: prefill + decode "
+           "logits", logits[0], logits[1], 2e-3)
+    for n in ("tm_shift", "cm_shift", "wkv"):
+        _check(f"reduced rwkv6-3b slice, card vs CPU plain: prefill {n}",
+               states[0][n], states[1][n], 2e-3)
+
+
 # ------------------------------------------------------------- 4. serve
-def phase_serve() -> tuple[dict, dict]:
+def _launch_counts() -> dict:
+    from repro_torch.kernels import flash_decode, packed_attention, wkv6
+    return {"packed_attention": packed_attention.launches,
+            "flash_decode": flash_decode.launches, "wkv6": wkv6.launches}
+
+
+def _zero_launch_counts():
+    from repro_torch.kernels import flash_decode, packed_attention, wkv6
+    packed_attention.launches = flash_decode.launches = wkv6.launches = 0
+
+
+def phase_serve(arch: str) -> tuple[dict, dict]:
+    """Serve ``arch`` at full width through ``serve.main``, with every
+    kernel's count set to 0 just before and read just after."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_decode, packed_attention
     from repro_torch.launch import serve
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    packed_attention.launches = 0
-    flash_decode.launches = 0
-    out = serve.main(["--arch", ARCH, "--batch", str(BATCH), "--prompt-len",
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.main(["--arch", arch, "--batch", str(BATCH), "--prompt-len",
                       str(PROMPT), "--gen", str(GEN)])
-    counts = {"packed_attention": packed_attention.launches,
-              "flash_decode": flash_decode.launches}
+    counts = _launch_counts()
+    wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    log(f"[serve] {ARCH} layers={cfg.num_layers} d_model={cfg.d_model} "
-        f"batch={BATCH} prompt={PROMPT} gen={GEN}")
-    log(f"[serve] prefill_s={out['prefill_s']:.4f} "
+    log(f"[serve] {arch} layers={cfg.num_layers} d_model={cfg.d_model} "
+        f"batch={BATCH} prompt={PROMPT} gen={GEN} ({wall:.1f}s in serve.main,"
+        f" weights drawn and cast included)")
+    log(f"[serve] {arch} prefill_s={out['prefill_s']:.4f} "
         f"decode_tok_s={out['decode_tok_s']:.2f} "
         f"(decode_s={out['decode_s']:.4f} for {GEN} steps x {BATCH} seqs) "
         f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB)")
-    log(f"[serve] greedy tokens: {out['tokens'].tolist()}")
-    log(f"[serve] launches on the path: {counts}")
-    want = {"packed_attention": cfg.num_layers,
-            "flash_decode": cfg.num_layers * (PROMPT + GEN)}
+    log(f"[serve] {arch} greedy tokens: {out['tokens'].tolist()}")
+    log(f"[serve] {arch} launches on the path: {counts}")
+    L = cfg.num_layers
+    if cfg.family == "ssm":     # the WKV kernel once per layer, in prefill
+        want = {"packed_attention": 0, "flash_decode": 0, "wkv6": L}
+    else:
+        want = {"packed_attention": L, "flash_decode": L * (PROMPT + GEN),
+                "wkv6": 0}
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
     for key in ("prefill_logits", "logits"):
@@ -348,9 +516,10 @@ def _time_flash_decode(cfg, launches: int) -> dict:
 
 
 def _record(name, src, replaces, launches, err, ms, plain_ms, lib_ms,
-            nbytes, flops, peak) -> dict:
+            nbytes, flops, peak, no_library="") -> dict:
     """``ms``, ``plain_ms`` and ``lib_ms`` are (device, eager) pairs; the
-    record keeps the device times."""
+    record keeps the device times.  ``lib_ms`` is None where no single
+    PyTorch call computes the function; ``no_library`` says why."""
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = flops / peak * 1e3
     rec = {"name": name, "route": "cuda",
@@ -359,31 +528,102 @@ def _record(name, src, replaces, launches, err, ms, plain_ms, lib_ms,
            "ms": ms[0], "plain_ms": plain_ms[0],
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": lib_ms[0]}
+           "library_ms": lib_ms[0] if lib_ms else None}
+    lib = f"{lib_ms[0]:.4f}" if lib_ms else f"null ({no_library})"
     log(f"[time] {name}: device ms={ms[0]:.4f} plain_ms={plain_ms[0]:.4f} "
-        f"library_ms={lib_ms[0]:.4f} bound_ms={rec['bound_ms']:.4f} "
+        f"library_ms={lib} bound_ms={rec['bound_ms']:.4f} "
         f"({rec['bound_by']}: {nbytes} B, {flops} FLOP) launches={launches} "
         f"max_abs_err={err:.3e}")
+    lib = f"{lib_ms[1]:.4f}" if lib_ms else "null"
     log(f"[time] {name}: eager ms (host overhead included)={ms[1]:.4f} "
-        f"plain={plain_ms[1]:.4f} library={lib_ms[1]:.4f}")
+        f"plain={plain_ms[1]:.4f} library={lib}")
     return rec
+
+
+def _wkv6_flops(reset, h: int, dk: int, chunk: int) -> int:
+    """Operations the chunked WKV6 needs on these resets (an exp counts as
+    one, a multiply-add as two), per head and chunk:
+      * each pair s < t with no reset in (s, t]: its weight, dk x (sub,
+        exp, two multiplies, add), and its A[t,s] v[s] row, 2 dv;
+      * each token: the u bonus, 3 dk, and its v row, 2 dv;
+      * each token with no reset before it in the chunk: r exp(cw), 2 dk,
+        and r_q S, 2 dk dv;
+      * each token with no reset after it in the chunk: k_hat, 3 dk, and
+        k_hat^T v, 2 dk dv;
+      * each chunk with no reset: the decay of S, dk + dk dv.
+    Pairs across a reset, and the state term behind one, need nothing."""
+    b, s = reset.shape
+    L = min(chunk, s)
+    n = -(-s // L) * L
+    flags = torch.zeros((b, n), dtype=torch.int64, device=reset.device)
+    flags[:, :s] = reset.to(torch.int64)
+    valid = torch.arange(n, device=reset.device) < s
+    R = flags.view(b, -1, L).cumsum(-1)
+    valid = valid.view(1, -1, L)
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                device=reset.device), diagonal=-1)
+    pairs = int(((R[..., :, None] == R[..., None, :]) & tri
+                 & valid[..., :, None]).sum())
+    q_rows = int(((R == 0) & valid).sum())
+    k_rows = int(((R == R[..., -1:]) & valid).sum())
+    live = int((R[..., -1] == 0).sum())
+    dv = dk
+    per_head = (pairs * (5 * dk + 2 * dv) + b * s * (3 * dk + 2 * dv)
+                + q_rows * (2 * dk + 2 * dk * dv)
+                + k_rows * (3 * dk + 2 * dk * dv) + live * (dk + dk * dv))
+    return h * per_head
+
+
+def _time_wkv6(cfg, launches: int) -> dict:
+    from repro_torch.kernels import ref, wkv6
+    b, s, dk, chunk = BATCH, PROMPT, cfg.rwkv_head_dim, cfg.rwkv_chunk
+    h = cfg.d_model // dk
+    rng = np.random.default_rng(6)
+    serve_seg = np.ones((b, s), np.int32)          # one segment per row
+    sets = [_wkv6_inputs(rng, b, s, h, dk, serve_seg) for _ in range(4)]
+
+    def kernel(*a):
+        return wkv6.wkv6(*a, chunk=chunk, return_state=True)
+
+    def plain(*a):
+        return ref.wkv6_chunked(*a[:5], chunk=chunk, reset=a[5],
+                                return_state=True)
+    got, exp = kernel(*sets[0]), plain(*sets[0])
+    err = max(_check("wkv6 serve shape, o", got[0], exp[0], *WKV_TOL),
+              _check("wkv6 serve shape, final state", got[1], exp[1],
+                     *WKV_TOL))
+    ms = _time_ms(kernel, sets, 40)
+    plain_ms = _time_ms(plain, sets, 8)
+    nbytes = _nbytes(*sets[0], *got)
+    flops = _wkv6_flops(sets[0][5], h, dk, chunk)
+    return _record("wkv6", "wkv6.cu", "src/repro/kernels/wkv6.py:90",
+                   launches, err, ms, plain_ms, None, nbytes, flops,
+                   PEAK_FLOPS[torch.float32],
+                   no_library="no single PyTorch call computes WKV6")
 
 
 def phase_time(counts: dict) -> list:
     from repro_torch.configs import get_config
-    cfg = get_config(ARCH)
+    qwen, rwkv = get_config(ARCH), get_config(RWKV_ARCH)
     torch.cuda.empty_cache()
-    return [_time_packed_attention(cfg, counts["packed_attention"]),
-            _time_flash_decode(cfg, counts["flash_decode"])]
+    return [_time_packed_attention(qwen, counts["packed_attention"]),
+            _time_flash_decode(qwen, counts["flash_decode"]),
+            _time_wkv6(rwkv, counts["wkv6"])]
 
 
 # ------------------------------------------------------------- 5. trace
-def phase_trace(served: dict, steps: int = 4):
+def _device_kernels(prof) -> list:
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def phase_trace_decode(arch: str, served: dict, steps: int = 4):
     """Profile ``steps`` decode steps of the serve run's own bf16 model on
     its float32 cache, at the first positions the serve run decoded
     (``PROMPT ..``), so attention reads the cache length it read there:
     wall time per step, the device's busy share, and device time by kernel.
-    Rewriting those cache rows changes no shape or launch."""
+    Rewriting those cache rows (or stepping the RWKV state on) changes no
+    shape or launch."""
     from torch.profiler import ProfilerActivity, profile
     decode, cache = served["decode"], served["cache"]
     tokens = torch.ones((BATCH, 1), dtype=torch.int32, device="cuda")
@@ -395,16 +635,44 @@ def phase_trace(served: dict, steps: int = 4):
             decode(cache, tokens, t)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    log(f"[trace] decode step at cache positions {PROMPT}..{PROMPT + steps}: "
-        f"wall_ms={wall_ms:.3f} (profiler on) "
+    log(f"[trace] {arch} decode step at positions {PROMPT}..{PROMPT + steps}"
+        f": wall_ms={wall_ms:.3f} (profiler on) "
         f"device_busy_ms={busy_ms:.3f} busy_share={busy_ms / wall_ms:.4f} "
         f"kernel_launches_per_step={sum(e.count for e in kernels) / steps}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[trace]   {e.self_device_time_total / 1e3 / steps:9.4f} ms "
             f"x{e.count // steps:<5d} {e.key[:90]}")
+
+
+def phase_trace_prefill(arch: str, served: dict):
+    """Profile one prefill of the serve run's own model and prompt (the
+    serve run's prefill already warmed it): wall time, the device's busy
+    share, the share of the hand-written kernels, and device time by
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    prefill, batch = served["prefill"], served["batch"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ours = {n: sum(e.self_device_time_total for e in kernels if n in e.key)
+            / 1e3 for n in ("wkv6", "packed_attention")}
+    log(f"[trace] {arch} prefill {BATCH}x{PROMPT}: wall_ms={wall_ms:.3f} "
+        f"(profiler on) device_busy_ms={busy_ms:.3f} "
+        f"busy_share={busy_ms / wall_ms:.4f} "
+        f"kernel_launches={sum(e.count for e in kernels)} " + " ".join(
+            f"{n}_ms={t:.3f} {n}_share_of_busy={t / busy_ms:.4f}"
+            for n, t in ours.items() if t))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[trace]   {e.self_device_time_total / 1e3:9.4f} ms "
+            f"x{e.count:<5d} {e.key[:90]}")
 
 
 def main():
@@ -414,9 +682,14 @@ def main():
     t0 = time.perf_counter()
     phase_build()
     phase_check()
-    counts, served = phase_serve()
-    phase_trace(served)
-    del served          # frees the 16.4 GB of bf16 weights before timing
+    counts, served = phase_serve(ARCH)
+    phase_trace_decode(ARCH, served)
+    del served          # frees the 16.4 GB of bf16 qwen3-8b weights
+    rwkv_counts, served = phase_serve(RWKV_ARCH)
+    counts["wkv6"] = rwkv_counts["wkv6"]
+    phase_trace_prefill(RWKV_ARCH, served)
+    phase_trace_decode(RWKV_ARCH, served)
+    del served          # frees the 6.2 GB of bf16 rwkv6-3b weights
     kernels = phase_time(counts)
     log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
     print(json.dumps({"kernels": kernels}))

@@ -29,6 +29,10 @@ class ModelConfig:
     tied_embeddings: bool = False
     # only so that a MoE config is refused; the MoE layers are not ported
     num_experts: int = 0
+    # --- rwkv6 ---
+    rwkv_head_dim: int = 64
+    rwkv_chunk: int = 64
+    rwkv_lora_dim: int = 64
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
@@ -69,7 +73,7 @@ def list_configs() -> list[str]:
 
 
 # Config modules of the archs this port runs.
-_PORTED = ["qwen3_8b"]
+_PORTED = ["qwen3_8b", "rwkv6_3b"]
 
 _LOADED = False
 

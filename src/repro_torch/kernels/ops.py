@@ -1,4 +1,4 @@
-"""Public attention ops: the CUDA kernels on the card, plain versions on the CPU.
+"""Public kernel ops: the CUDA kernels on the card, plain versions on the CPU.
 
 The port of ``repro.kernels.ops``.  The device of the inputs decides: CUDA
 tensors go to the hand-written kernels (which launch or raise; nothing falls
@@ -11,6 +11,7 @@ import torch
 from repro_torch.kernels import flash_decode as _flash_decode
 from repro_torch.kernels import packed_attention as _packed_attention
 from repro_torch.kernels import ref
+from repro_torch.kernels import wkv6 as _wkv6
 
 
 def packed_attention(q, k, v, q_seg, kv_seg, *, causal: bool = True
@@ -27,3 +28,13 @@ def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     if q.device.type == "cpu":
         return ref.flash_decode_ref(q, k_cache, v_cache, cache_len)
     return _flash_decode.flash_decode(q, k_cache, v_cache, cache_len)
+
+
+def wkv6(r, k, v, loga, u, reset, *, chunk: int, return_state: bool = False):
+    """Layout: r, k, v, loga (b, s, h, dk) float32; u (h, dk); reset (b, s).
+    Returns o (b, s, h, dk) float32 (and the final state (b, h, dk, dk))."""
+    if r.device.type == "cpu":
+        return ref.wkv6_chunked(r, k, v, loga, u, chunk=chunk, reset=reset,
+                                return_state=return_state)
+    return _wkv6.wkv6(r, k, v, loga, u, reset, chunk=chunk,
+                      return_state=return_state)

@@ -1,14 +1,18 @@
-"""Serving launcher: batched prefill + decode with the KV-cache step.
+"""Serving launcher: batched prefill + decode with the cache step.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --batch 4 --prompt-len 32 --gen 16            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --reduced --device cpu --batch 2 --prompt-len 16 --gen 4
 
 The port of ``repro.launch.serve``: the same CLI plus ``--device`` (default
 ``cuda``; without a card that raises unless ``--device cpu`` is given), and
-the same flow: prefill the prompt, then refill a fresh float32 cache by
-replaying the prompt through ``decode_step``, then decode greedily.  On the
-card attention always runs through the CUDA kernels.
+the same flow for every ported arch: prefill the prompt, then refill a
+fresh float32 cache (the KV cache of a dense model, the shift and WKV
+states of RWKV6) by replaying the prompt through ``decode_step``, then
+decode greedily.  On the card attention and the WKV always run through the
+CUDA kernels.
 """
 from __future__ import annotations
 
@@ -33,8 +37,9 @@ def _sync(device: torch.device):
 def main(argv=None) -> dict:
     """Run the server once.  Returns the greedy tokens ``(batch, gen)``, the
     last prefill and decode logits, the host-clock timings, and the bf16
-    model, its decode step and the filled cache, so a caller can go on
-    stepping at the run's own cache length."""
+    model, its prefill and decode steps, the prompt batch and the filled
+    cache, so a caller can rerun the prefill or go on stepping at the run's
+    own cache length."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--reduced", action="store_true")
@@ -99,7 +104,8 @@ def main(argv=None) -> dict:
     return {"tokens": gen, "prefill_logits": prefill_logits,
             "logits": logits, "prefill_s": prefill_s, "decode_s": dt,
             "decode_tok_s": args.gen * b / dt, "model": model,
-            "decode": decode, "cache": cache}
+            "prefill": prefill, "decode": decode, "batch": batch,
+            "cache": cache}
 
 
 if __name__ == "__main__":

@@ -1,1 +1,1 @@
-"""Models: the port of ``repro.models`` (dense family so far)."""
+"""Models: the port of ``repro.models`` (dense and RWKV6 families so far)."""

@@ -30,6 +30,23 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return out.to(dt)
 
 
+def layernorm_def(dim: int) -> dict:
+    return {
+        "scale": ParamDef((dim,), (None,), init="ones", dtype=torch.float32),
+        "bias": ParamDef((dim,), (None,), init="zeros", dtype=torch.float32),
+    }
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Population variance (``correction=0``), as ``jnp.var``."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    out = (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return out.to(dt)
+
+
 # --------------------------------------------------------------------- rope
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,

@@ -3,8 +3,9 @@
 ``Model`` holds the parameter tree as (non-trainable) parameters whose
 ``state_dict`` keys are the JAX tree's key paths joined by ``.``
 (``embed.table``, ``layers.attn.wq``, ...), with the stacked ``layers``
-dim kept, so the weight bridge is one to one.  Only the dense family is
-ported; other families raise and point at ``ROADMAP.md``.
+dim kept, so the weight bridge is one to one.  The dense family
+(``models.transformer``) and the ssm family, RWKV6 (``models.rwkv_model``),
+are ported; other families raise and point at ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -13,7 +14,12 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as pdefs
-from repro_torch.models import transformer
+from repro_torch.models import rwkv_model, transformer
+
+# family -> the module of its forward / prefill / decode_step / init_cache,
+# and its ParamDef tree
+_FAMILIES = {"dense": (transformer, transformer.lm_defs),
+             "ssm": (rwkv_model, rwkv_model.rwkv_defs)}
 
 
 class ParamTree(nn.Module):
@@ -36,38 +42,45 @@ class ParamTree(nn.Module):
 
 
 class Model(ParamTree):
-    """A dense LM: parameters plus the forward / prefill / decode steps."""
+    """An LM of a ported family: parameters plus the forward / prefill /
+    decode steps of ``repro.models.model_zoo.build_model``'s mapping."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__(params)
         self.cfg = cfg
+        self._mod = _family(cfg)[0]
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
 
     def forward(self, batch):
-        return transformer.forward(self.tree(), self.cfg, batch)
+        return self._mod.forward(self.tree(), self.cfg, batch)
 
     def prefill(self, batch):
-        return transformer.prefill(self.tree(), self.cfg, batch)
+        """Prompt -> (last-token logits, cache)."""
+        return self._mod.prefill(self.tree(), self.cfg, batch)
 
     def decode_step(self, cache, tokens, pos: int):
-        return transformer.decode_step(self.tree(), self.cfg, cache, tokens,
-                                       pos)
+        return self._mod.decode_step(self.tree(), self.cfg, cache, tokens,
+                                     pos)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
-        return transformer.init_cache(self.cfg, batch, max_len, dtype,
-                                      self.device)
+        return self._mod.init_cache(self.cfg, batch, max_len, dtype,
+                                    self.device)
+
+
+def _family(cfg: ModelConfig) -> tuple:
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
+            f"yet (ported: {sorted(_FAMILIES)}); see ROADMAP.md")
+    return _FAMILIES[cfg.family]
 
 
 def model_defs(cfg: ModelConfig) -> dict:
     """The ParamDef tree of ``cfg`` (shapes only, nothing allocated)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            "yet; see ROADMAP.md")
-    return transformer.lm_defs(cfg)
+    return _family(cfg)[1](cfg)
 
 
 def build_model(cfg: ModelConfig, generator: torch.Generator,

@@ -23,6 +23,8 @@ KV_HEADS = "kv_heads"
 HEAD_DIM = "head_dim"
 VOCAB = "vocab"
 LAYERS = "layers"
+RWKV_HEADS = "rwkv_heads"
+LORA = "lora"
 
 
 @dataclasses.dataclass(frozen=True)

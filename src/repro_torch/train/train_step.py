@@ -16,8 +16,9 @@ def _cast_for_compute(model: Model) -> Model:
     """Cast every float32 leaf of rank > 1 to ``COMPUTE_DTYPE``, in place.
 
     The rule is JAX's, applied to the same stacked shapes: the per-layer
-    norm scales are rank 2 because of the ``layers`` dim, so they become
-    bf16 too, while ``final_norm.scale`` (rank 1) stays float32.  JAX casts
+    norm scales (and RWKV6's ``u``, ``w0`` and ``mu_*``) are rank 2 or more
+    because of the ``layers`` dim, so they become bf16 too, while
+    ``final_norm`` (rank 1) stays float32.  JAX casts
     inside every jitted call; the port casts once, leaf by leaf, so the
     float32 tree is freed as it goes instead of a second full-size copy
     being made per call.  The cast is deterministic, so the numbers are

@@ -81,9 +81,12 @@ def test_full_width_qwen3_8b_param_count_from_shapes():
 def test_unported_archs_raise_and_name_the_roadmap():
     from repro_torch.configs import get_config, list_configs
     from repro_torch.models.model_zoo import model_defs
-    assert list_configs() == ["qwen3-8b"]
+    assert list_configs() == ["qwen3-8b", "rwkv6-3b"]
     with pytest.raises(KeyError, match="ROADMAP.md"):
         get_config("qwen3-moe-30b-a3b")
     moe = get_config("qwen3-8b").replace(family="moe", num_experts=8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         model_defs(moe)
+    hybrid = get_config("qwen3-8b").replace(family="hybrid")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        model_defs(hybrid)

@@ -39,6 +39,26 @@ def test_rmsnorm_matches_jax():
            jL.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x), 1e-6))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm_matches_jax(dtype):
+    """Population variance and a float32 upcast; the output keeps x's
+    dtype (bf16 inputs are compared at the kernels' bf16 tolerance)."""
+    rng = np.random.default_rng(3)
+    x = _np(rng, 2, 5, 64, scale=2.0) + 0.5
+    scale, bias = 1 + _np(rng, 64, scale=0.3), _np(rng, 64, scale=0.3)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    got = L.layernorm({"scale": _t(scale), "bias": _t(bias)},
+                      _t(x).to(tdt), 1e-6)
+    exp = jL.layernorm({"scale": jnp.asarray(scale),
+                        "bias": jnp.asarray(bias)},
+                       jnp.asarray(x, jdt), 1e-6)
+    assert got.dtype == tdt
+    tol = 2e-2 if dtype == "bfloat16" else TOL["atol"]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(exp, np.float32), atol=tol,
+                               rtol=tol)
+
+
 def test_apply_rope_matches_jax():
     rng = np.random.default_rng(1)
     x = _np(rng, 2, 7, 3, 16)
