@@ -8,7 +8,10 @@ Phases (any failure raises, and the exit code is not 0):
                kernels/csrc`` (in parallel) into ``build/repro_torch_kernels``.
   3. check   — each kernel against its plain PyTorch version on the card,
                TF32 off: packed_attention and flash_decode at qwen3-8b head
-               shapes and more, wkv6 at rwkv6-3b head shapes (packed
+               shapes and more (ragged tiles, segments changing mid-tile,
+               skipped tiles between live ones, every head chunking of
+               decode, cache lengths at tile and split edges, a CUDA-graph
+               replay of decode), wkv6 at rwkv6-3b head shapes (packed
                resets, a ragged length, the final state) and more; then
                reduced qwen3-8b and reduced rwkv6-3b prefill + decode on
                the card against the CPU.
@@ -19,10 +22,10 @@ Phases (any failure raises, and the exit code is not 0):
                launch count is set to 0 just before each run and read just
                after; the counts must show the path went through the
                kernels.
-  5. trace   — torch.profiler over decode steps of each serve run's own
-               model and cache, and over one rwkv6-3b prefill (where wkv6
-               runs): the device's busy share and the kernels that take
-               its time.
+  5. trace   — torch.profiler over one prefill and over decode steps of
+               each serve run's own model and cache: the device's busy
+               share, the share of the hand-written kernels, and the
+               kernels that take its time.
   6. time    — each kernel at the serving shapes (CUDA events around a
                CUDA-graph replay, and around eager calls), beside its plain
                version, one PyTorch library call where there is one, and
@@ -136,9 +139,30 @@ def _launch(module, fn, *args, **kw):
 
 
 def phase_check():
-    from repro_torch.kernels import flash_decode, packed_attention, ref
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
+    _check_packed_attention()
+    _check_flash_decode()
+    _check_flash_decode_graph()
+    _check_wkv6()
+    _check_reduced_slice()
+    _check_reduced_rwkv()
+
+
+def _check_pa(rng, b, h, kh, sq, sk, d, dt, causal, q_seg, kv_seg, what=""):
+    from repro_torch.kernels import packed_attention, ref
+    q, k, v = (_bshd(rng, b, sq, h, d, dt), _bshd(rng, b, sk, kh, d, dt),
+               _bshd(rng, b, sk, kh, d, dt))
+    q_seg = torch.as_tensor(q_seg, device="cuda")
+    kv_seg = torch.as_tensor(kv_seg, device="cuda")
+    got = _launch(packed_attention, packed_attention.packed_attention,
+                  q, k, v, q_seg, kv_seg, causal=causal)
+    exp = ref.packed_attention_ref(q, k, v, q_seg, kv_seg, causal=causal)
+    _check(f"packed_attention b={b} h={h} kh={kh} sq={sq} sk={sk} d={d} "
+           f"{str(dt)[6:]} causal={causal}{what}", got, exp, TOL[dt])
+
+
+def _check_packed_attention():
     rng = np.random.default_rng(0)
     pa_cases = [  # (b, h, kh, sq, sk, d, dtype, causal)
         (2, 32, 8, 1000, 1000, 128, dt, c)
@@ -149,39 +173,108 @@ def phase_check():
         (2, 4, 4, 300, 300, 80, dt, True) for dt in TOL] + [     # MHA
         (2, 8, 2, 200, 333, 128, dt, False) for dt in TOL]       # sq != sk
     for b, h, kh, sq, sk, d, dt, causal in pa_cases:
-        q, k, v = (_bshd(rng, b, sq, h, d, dt), _bshd(rng, b, sk, kh, d, dt),
-                   _bshd(rng, b, sk, kh, d, dt))
-        q_seg = torch.tensor(_segs(rng, b, sq), device="cuda")
-        kv_seg = q_seg if sq == sk else torch.tensor(_segs(rng, b, sk),
-                                                     device="cuda")
-        got = _launch(packed_attention, packed_attention.packed_attention,
-                      q, k, v, q_seg, kv_seg, causal=causal)
-        exp = ref.packed_attention_ref(q, k, v, q_seg, kv_seg, causal=causal)
-        _check(f"packed_attention b={b} h={h} kh={kh} sq={sq} sk={sk} d={d} "
-               f"{str(dt)[6:]} causal={causal}", got, exp, TOL[dt])
+        q_seg = _segs(rng, b, sq)
+        kv_seg = q_seg if sq == sk else _segs(rng, b, sk)
+        _check_pa(rng, b, h, kh, sq, sk, d, dt, causal, q_seg, kv_seg)
 
+    # What the bf16 tensor-core design can break (64-row q and kv tiles).
+    bf = torch.bfloat16
+    for s in (1, 63, 65, 1000):                 # ragged q and kv tails
+        for d in (32, 64, 80, 128):
+            seg = _segs(rng, 2, s) if s > 16 else np.ones((2, s), np.int32)
+            _check_pa(rng, 2, 8, 2, s, s, d, bf, True, seg, seg)
+    # short segments that change mid-tile on both sides, and q and kv ids
+    # drawn apart: live tiles where some q rows have no valid key (p must be
+    # zeroed there) and rows with no valid key at all (output 0)
+    short = np.zeros((2, 300), np.int32)
+    for i in range(2):
+        short[i] = np.repeat(np.arange(1, 301), rng.integers(3, 40, 300))[:300]
+    _check_pa(rng, 2, 8, 2, 300, 300, 128, bf, True, short, short,
+              " short segments")
+    for causal in (True, False):
+        _check_pa(rng, 2, 8, 2, 300, 300, 128, bf, causal, _segs(rng, 2, 300),
+                  _segs(rng, 2, 300), " q and kv ids apart")
+    # an all-padding q tile (rows 64-127) between live ones
+    seg = _segs(rng, 2, 256)
+    seg[:, 64:128] = 0
+    _check_pa(rng, 2, 8, 2, 256, 256, 128, bf, True, seg, seg,
+              " padding q tile")
+    # kv tiles live, skipped, live, skipped (padding), live: the cp.async
+    # double buffer across skipped tiles
+    ids = np.repeat(np.array([5, 7, 5, 0, 5], np.int32), 64)[None].repeat(2, 0)
+    _check_pa(rng, 2, 8, 2, 320, 320, 128, bf, True, ids, ids,
+              " tiles 5,7,5,0,5")
+    _check_pa(rng, 2, 8, 2, 100, 320, 128, bf, False,
+              np.full((2, 100), 5, np.int32), ids, " kv tiles 5,7,5,0,5")
+    # head dims off the 16-byte path: d % 8 != 0 takes the scalar loads
+    _check_pa(rng, 2, 4, 2, 130, 130, 100, bf, True, _segs(rng, 2, 130),
+              _segs(rng, 2, 130), " scalar path")
+
+
+def _check_flash_decode():
+    """The old cases, then every GQA group size the head chunking meets
+    (1, 4, 6 and 16 q heads per kv head), cache_len 1, just past a tile and
+    just past a split, and a long cache whose warps walk several tiles
+    (the two-stage ring)."""
+    from repro_torch.kernels import flash_decode, ref
+    rng = np.random.default_rng(1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     dtypes = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
               (torch.bfloat16, torch.bfloat16)]      # (q, cache)
-    for b, h, kh, S, d in [(4, 32, 8, 1100, 128), (3, 16, 2, 300, 64),
-                           (2, 4, 4, 70, 80)]:
+    cases = [(4, 32, 8, 1100, 128, None), (3, 16, 2, 300, 64, None),
+             (2, 4, 4, 70, 80, None)]
+    for b, h, kh, S, d in [(4, 16, 16, 300, 128), (4, 16, 4, 300, 128),
+                           (4, 12, 2, 200, 64), (4, 32, 2, 300, 128),
+                           (4, 32, 8, 4096, 128)]:
+        plan = flash_decode.split_plan(b, kh, h // kh, S, sms)
+        lens = [1, flash_decode.TILE_ROWS + 1, plan.split_len + 1, S]
+        cases.append((b, h, kh, S, d, [min(n, S) for n in lens]))
+    for b, h, kh, S, d, lens in cases:
+        plan = flash_decode.split_plan(b, kh, h // kh, S, sms)
         for q_dt, c_dt in dtypes:
             q = torch.tensor(rng.normal(size=(b, h, d)), device="cuda").to(
                 q_dt)
             cache = torch.tensor(rng.normal(size=(2, 2, b, S, kh, d)),
                                  device="cuda").to(c_dt)  # (kv, layers, ...)
             kc, vc = cache[0, 1].transpose(1, 2), cache[1, 1].transpose(1, 2)
-            clen = torch.tensor(rng.integers(1, S + 1, size=(b,)),
-                                dtype=torch.int32, device="cuda")
-            clen[0] = S
+            if lens is None:
+                clen = torch.tensor(rng.integers(1, S + 1, size=(b,)),
+                                    dtype=torch.int32, device="cuda")
+                clen[0] = S
+            else:
+                clen = torch.tensor(lens, dtype=torch.int32, device="cuda")
             got = _launch(flash_decode, flash_decode.flash_decode, q, kc, vc,
                           clen)
             exp = ref.flash_decode_ref(q, kc, vc, clen)
             _check(f"flash_decode b={b} h={h} kh={kh} S={S} d={d} "
                    f"q={str(q_dt)[6:]} cache={str(c_dt)[6:]} "
-                   f"cache_len={clen.tolist()}", got, exp, TOL[q_dt])
-    _check_wkv6()
-    _check_reduced_slice()
-    _check_reduced_rwkv()
+                   f"cache_len={clen.tolist()} {plan}", got, exp, TOL[q_dt])
+
+
+def _check_flash_decode_graph():
+    """One flash_decode call captured in a CUDA graph and replayed three
+    times with other cache lengths: each replay must match the plain
+    version, which holds only if the fused combine leaves its arrival
+    counters at 0."""
+    from repro_torch.kernels import flash_decode, ref
+    rng = np.random.default_rng(2)
+    b, h, kh, S, d = BATCH, 32, 8, PROMPT + GEN, 128
+    q = torch.tensor(rng.normal(size=(b, h, d)), device="cuda").to(
+        torch.bfloat16)
+    kc, vc = (torch.tensor(rng.normal(size=(b, S, kh, d)), dtype=torch.float32,
+                           device="cuda").transpose(1, 2) for _ in range(2))
+    clen = torch.full((b,), S, dtype=torch.int32, device="cuda")
+    flash_decode.flash_decode(q, kc, vc, clen)    # scratch made before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode.flash_decode(q, kc, vc, clen)
+    for lens in ([S, 1, 300, 33], [17, S, 9, 200], [S, S, S, S]):
+        clen.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        _check(f"flash_decode CUDA-graph replay cache_len={lens}", out,
+               ref.flash_decode_ref(q, kc, vc, clen), SERVE_DECODE_TOL)
 
 
 def _check_reduced_slice():
@@ -683,6 +776,7 @@ def main():
     phase_build()
     phase_check()
     counts, served = phase_serve(ARCH)
+    phase_trace_prefill(ARCH, served)
     phase_trace_decode(ARCH, served)
     del served          # frees the 16.4 GB of bf16 qwen3-8b weights
     rwkv_counts, served = phase_serve(RWKV_ARCH)

@@ -4,13 +4,14 @@ Replaces the Pallas TPU kernel ``repro.kernels.flash_decode.flash_decode``:
 one query token per sequence against a KV cache, positions >= cache_len
 masked.  The wrapper takes CUDA tensors only and raises on anything the
 kernel does not take; ``kernels.ops`` sends CPU tensors to ``kernels.ref``
-instead.  ``launches`` counts the wrapper's calls that launched the kernel
-(each call is a split pass plus a small combine pass).
+instead.  ``launches`` counts the wrapper's calls that launched the kernel;
+a call is one kernel launch (the combine of the split partials is fused).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -18,20 +19,90 @@ from repro_torch.kernels import _build
 
 launches = 0
 
-# Cache positions per block of the split pass.  At qwen3-8b serving shapes
-# (batch 4, 8 kv heads, 544 positions) this gives 9 x 32 = 288 blocks.
-SPLIT_LEN = 64
+# WARPS, TILE_ROWS (TP) and DMAX are the kernel's constants
+WARPS = 4        # warps per CTA
+TILE_ROWS = 8    # cache rows per warp tile
+DMAX = 128       # largest head dim
+# CTAs per SM the split plan allows: the kernel's launch bounds and a
+# two-stage float32 ring (64 KB of shared memory a CTA) both allow three
+RESIDENT = 3
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+_scratch: dict = {}
+
+
+class SplitPlan(NamedTuple):
+    """How the kernel's grid cuts the work of one call.
+
+    ``heads`` q heads of a GQA group share a CTA (``n_gchunks`` CTAs cover
+    the group); CTA ``split`` reads cache positions ``split * split_len``
+    up to ``split_len`` more; within it warp ``w`` takes the tiles of
+    ``TILE_ROWS`` rows that start at ``w * TILE_ROWS`` plus multiples of
+    ``WARPS * TILE_ROWS``.  ``stages`` is the depth of each warp's K/V ring:
+    2 where a warp has more than one tile, so the next is in flight while
+    this one is computed.
+    """
+    heads: int
+    n_gchunks: int
+    split_len: int
+    n_split: int
+    stages: int
+
+
+def split_plan(b: int, kh: int, group: int, S: int, sm_count: int
+               ) -> SplitPlan:
+    """The fewest positions per CTA (a multiple of ``WARPS * TILE_ROWS``)
+    that keep the grid within ``RESIDENT`` CTAs per SM, so it runs in one
+    wave: a second wave would add a whole CTA's latency.  The plan
+    is from the cache's capacity S: cache_len lives on the device, and
+    reading it would stall the host (and break CUDA-graph capture); CTAs
+    past cache_len[b] read nothing."""
+    heads = next(g for g in (1, 2, 4, 8) if g >= min(group, 8))
+    n_gchunks = -(-group // heads)
+    rows = WARPS * TILE_ROWS
+    want = max(1, RESIDENT * sm_count // (b * kh * n_gchunks))
+    split_len = -(-(-(-S // want)) // rows) * rows
+    return SplitPlan(heads, n_gchunks, split_len, -(-S // split_len),
+                     2 if split_len > rows else 1)
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _scratch_for(device: torch.device, groups: int, plan: SplitPlan):
+    """The partials and the arrival counters, kept per (device, shape): the
+    kernel leaves the counters at 0, so a call reuses them with no
+    allocation.  Calls that share them must run in order (one stream, or a
+    CUDA graph replayed on it); the first call of a shape must come before
+    any graph capture, so the counters are zeroed on the device."""
+    key = (device, groups, plan.heads, plan.n_split)
+    if key not in _scratch:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flash_decode: call it once at this shape "
+                               "before capturing it in a CUDA graph")
+        rows = groups * plan.heads * plan.n_split
+        _scratch[key] = (
+            torch.empty((rows, 2), dtype=torch.float32, device=device),
+            torch.empty((rows, DMAX), dtype=torch.float32, device=device),
+            torch.zeros((groups,), dtype=torch.int32, device=device))
+    return _scratch[key]
+
+
+def _aligned(t: torch.Tensor, strides) -> bool:
+    """The pointer and the given strides are whole multiples of 16 bytes."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s * es % 16 == 0 for s in strides)
 
 
 @functools.cache
 def _kernel():
     lib = _build.load("flash_decode")
     fn = lib.flash_decode_launch
-    fn.argtypes = [_P] * 8 + [_I] * 7 + [_L] * 10 + [_F, _I, _I, _P]
+    fn.argtypes = [_P] * 8 + [_I] * 10 + [_L] * 10 + [_F, _I, _I, _P]
     fn.restype = _I
     return fn
 
@@ -77,20 +148,21 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if b * h == 0 or S == 0:
         return out.zero_()
-    n_split = -(-S // SPLIT_LEN)
-    part_m = torch.empty((b, h, n_split), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, h, n_split, d), dtype=torch.float32,
-                           device=q.device)
+    plan = split_plan(b, kh, h // kh, S, _sm_count(q.device.index))
+    part_ml, part_acc, counter = _scratch_for(
+        q.device, b * kh * plan.n_gchunks, plan)
+    chunk = 16 // k_cache.element_size()
+    vec = d % chunk == 0 and all(
+        _aligned(c, c.stride()[:3]) for c in (k_cache, v_cache))
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cache_len.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-            part_l.data_ptr(), part_acc.data_ptr(), b, h, kh, S, d,
-            SPLIT_LEN, n_split, *q.stride()[:2], *k_cache.stride()[:3],
-            *v_cache.stride()[:3], *out.stride()[:2], d ** -0.5,
-            _DTYPES[q.dtype], _DTYPES[k_cache.dtype],
+            cache_len.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
+            part_acc.data_ptr(), counter.data_ptr(), b, h, kh, S, d,
+            plan.heads, plan.split_len, plan.n_split, plan.stages, int(vec),
+            *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
+            *out.stride()[:2], d ** -0.5, _DTYPES[q.dtype],
+            _DTYPES[k_cache.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "

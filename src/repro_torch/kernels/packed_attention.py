@@ -2,6 +2,8 @@
 
 Replaces the Pallas TPU kernel ``repro.kernels.packed_attention.
 packed_flash_attention``: segment-aware causal flash attention, forward.
+bfloat16 inputs run on the tensor cores (``mma.sync``), float32 inputs on
+the CUDA cores, behind one C entry point.
 The wrapper takes CUDA tensors only and raises on anything the kernel does
 not take; ``kernels.ops`` sends CPU tensors to ``kernels.ref`` instead.
 ``launches`` counts the wrapper's kernel launches.
@@ -26,9 +28,17 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 def _kernel():
     lib = _build.load("packed_attention")
     fn = lib.packed_attention_launch
-    fn.argtypes = ([_P] * 6 + [_I] * 6 + [_L] * 14 + [_F, _I, _I, _P])
+    fn.argtypes = ([_P] * 6 + [_I] * 6 + [_L] * 14 + [_F, _I, _I, _I, _P])
     fn.restype = _I
     return fn
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """The pointer and the batch, head and row strides are whole multiples
+    of 16 bytes, so the bfloat16 kernel can move 16 bytes at a time."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        s * es % 16 == 0 for s in t.stride()[:3])
 
 
 def _check_seg(seg: torch.Tensor, b: int, s: int, name: str):
@@ -75,13 +85,14 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if b * sq * h == 0 or sk == 0:
         return out.zero_()
+    vec = d % 8 == 0 and all(_aligned(t) for t in (q, k, v, out))
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(),
             kv_seg.data_ptr(), out.data_ptr(), b, h, kh, sq, sk, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], q_seg.stride(0), kv_seg.stride(0), d ** -0.5,
-            int(causal), _DTYPES[q.dtype],
+            int(causal), _DTYPES[q.dtype], int(vec),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"packed_attention kernel launch failed: CUDA "

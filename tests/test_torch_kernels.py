@@ -152,12 +152,61 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros((1, 2, 8, 16))
     seg = torch.ones((1, 8), dtype=torch.int32)
     before = (packed_attention.launches, flash_decode.launches)
+    scratch = dict(flash_decode._scratch)
     with pytest.raises(ValueError, match="CUDA"):
         packed_attention.packed_attention(q, q, q, seg, seg)
+    with pytest.raises(ValueError, match="CUDA"):
+        packed_attention.packed_attention(q, q, q, seg, seg, causal=False)
     with pytest.raises(ValueError, match="CUDA"):
         flash_decode.flash_decode(q[:, :, 0], q, q,
                                   torch.ones((1,), dtype=torch.int32))
     assert (packed_attention.launches, flash_decode.launches) == before
+    assert flash_decode._scratch == scratch   # nothing allocated either
+
+
+@pytest.mark.parametrize("b,kh,group,S,sm_count", [
+    (4, 8, 4, 544, 132),      # qwen3-8b serving: one 8-row tile per warp
+    (4, 8, 4, 4096, 132),     # several tiles per warp: two-stage ring
+    (1, 1, 1, 5, 132),        # fewer positions than one tile
+    (2, 2, 16, 300, 132),     # a GQA group split over two CTAs
+    (3, 2, 6, 1000, 114),     # group 6 in chunks of 8; another SM count
+    (1, 8, 1, 32768, 132),    # a long cache
+])
+def test_flash_decode_split_plan_covers_each_position_once(b, kh, group, S,
+                                                           sm_count):
+    """Walk the kernel's tiles (CTA split, warp, tile) as csrc/flash_decode.cu
+    does: every position < cache_len is read exactly once, none past it,
+    and every q head of the group has a CTA."""
+    plan = flash_decode.split_plan(b, kh, group, S, sm_count)
+    rows = flash_decode.WARPS * flash_decode.TILE_ROWS
+    assert plan.heads in (1, 2, 4, 8)
+    assert plan.heads * plan.n_gchunks >= group > plan.heads * (
+        plan.n_gchunks - 1)
+    assert plan.split_len % rows == 0
+    assert (plan.n_split - 1) * plan.split_len < S <= \
+        plan.n_split * plan.split_len
+    assert plan.stages == (2 if plan.split_len > rows else 1)
+    # one wave where the card has room, and no CTA of fewer rows would do
+    groups = b * kh * plan.n_gchunks
+    if groups <= flash_decode.RESIDENT * sm_count:
+        assert groups * plan.n_split <= flash_decode.RESIDENT * sm_count
+    if plan.split_len > rows:
+        assert groups * -(-S // (plan.split_len - rows)) > \
+            flash_decode.RESIDENT * sm_count
+    for cache_len in sorted({1, flash_decode.TILE_ROWS + 1,
+                             plan.split_len + 1, S - 1, S}):
+        cache_len = min(max(cache_len, 1), S)
+        seen = np.zeros(S, np.int64)
+        for split in range(plan.n_split):
+            s_begin = split * plan.split_len
+            s_end = min(s_begin + plan.split_len, cache_len)
+            for warp in range(flash_decode.WARPS):
+                pos0 = s_begin + warp * flash_decode.TILE_ROWS
+                while pos0 < s_end:
+                    hi = min(pos0 + flash_decode.TILE_ROWS, s_end)
+                    seen[pos0:hi] += 1
+                    pos0 += rows
+        assert (seen[:cache_len] == 1).all() and (seen[cache_len:] == 0).all()
 
 
 def _wkv6_inputs(b, h, s, dk):
