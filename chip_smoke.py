@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only wkv6
 
 Phases (any failure raises, and the exit code is not 0):
   1. device  — the card's name, count and power limit; no card, no run.
@@ -12,7 +13,11 @@ Phases (any failure raises, and the exit code is not 0):
                skipped tiles between live ones, every head chunking of
                decode, cache lengths at tile and split edges, a CUDA-graph
                replay of decode), wkv6 at rwkv6-3b head shapes (packed
-               resets, a ragged length, the final state) and more; then
+               resets, a ragged length, the final state, resets on
+               sub-chunk edges, the state entering every chunk against
+               ``ref.wkv6_two_pass``, steep decays against the float64
+               oracle, a single chunk whose final state is read next and
+               in CUDA-graph replays) and more; then
                reduced qwen3-8b and reduced rwkv6-3b prefill + decode on
                the card against the CPU.
   4. serve   — ``repro_torch.launch.serve`` on qwen3-8b (36 layers, d_model
@@ -32,9 +37,14 @@ Phases (any failure raises, and the exit code is not 0):
                its bound.
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.
+
+``--only wkv6`` is the short loop for the wkv6 kernel: phase 1, the wkv6
+build, its phase-3 checks (``_check_wkv6``, ``_check_reduced_rwkv``) and
+its timing, with no serve run (so its record's ``launches`` is null).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -78,15 +88,15 @@ def phase_device() -> str:
 
 
 # ------------------------------------------------------------- 2. build
-def phase_build():
+def phase_build(names=None):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(names or _build.KERNELS)
     log(f"[build] {sorted(logs) or 'nothing stale'} in "
         f"{time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "entry")):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -309,16 +319,17 @@ def _check_reduced_slice():
            2e-3)
 
 
-def _wkv6_inputs(rng, b, s, h, dk, seg=None):
+def _wkv6_inputs(rng, b, s, h, dk, seg=None, scale=0.5):
     """r, k, v, loga (b, s, h, dk) and u (h, dk), float32 on the card, at
-    the scales of tests/test_kernels.py.  With packed segment ids ``seg``
-    the resets are the model's, ``(seg != prev) | (seg == 0)``, and k is
-    zeroed on padding as the model does; else the first token resets."""
-    def normal(*shape):
+    the scales of tests/test_kernels.py, with loga = -exp(scale N(0, 1)).
+    With packed segment ids ``seg`` the resets are the model's,
+    ``(seg != prev) | (seg == 0)``, and k is zeroed on padding as the model
+    does; else the first token resets."""
+    def normal(*shape, scale=0.5):
         return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
-                            device="cuda") * 0.5
+                            device="cuda") * scale
     r, k, v = (normal(b, s, h, dk) for _ in range(3))
-    loga = -torch.exp(normal(b, s, h, dk))
+    loga = -torch.exp(normal(b, s, h, dk, scale=scale))
     u = normal(h, dk)
     if seg is None:
         reset = torch.zeros((b, s), dtype=torch.bool, device="cuda")
@@ -389,6 +400,130 @@ def _check_wkv6():
         _check(f"{name}, o vs wkv6_chunked", o, o_exp, *WKV_TOL)
         _check(f"{name}, final state vs wkv6_chunked", state, state_exp,
                *WKV_TOL)
+    # resets on sub-chunk edges (t = 16, 32, 48 of a chunk) and mid-sub-
+    # chunk, loga down to about -700 (scale 1.5), every head size and chunk
+    edges = [(0, 16), (0, 96), (1, 48), (1, 69), (1, 160)]
+    for dk in (16, 32, 64):
+        for chunk in (16, 32, 64):
+            b, h, s = 2, 3, 192
+            args = _wkv6_inputs(rng, b, s, h, dk, scale=1.5)
+            for row, t in edges:
+                args[5][row, t] = True
+            o, state = _launch(wkv6, wkv6.wkv6, *args, chunk=chunk,
+                               return_state=True)
+            name = f"wkv6 b={b} h={h} s={s} dk={dk} chunk={chunk} " \
+                "sub-chunk-edge resets, loga scale 1.5"
+            _check(f"{name}, vs wkv6_ref", o, ref.wkv6_ref(*args), *WKV_TOL)
+            o_exp, state_exp = ref.wkv6_chunked(
+                *args[:5], chunk=chunk, reset=args[5], return_state=True)
+            _check(f"{name}, o vs wkv6_chunked", o, o_exp, *WKV_TOL)
+            _check(f"{name}, final state vs wkv6_chunked", state, state_exp,
+                   *WKV_TOL)
+    # rows that are not 16-byte aligned (r, k, v, loga seen through columns
+    # 1..64 of a 65-wide buffer): the kernels' 4-byte copies
+    b, h, s, dk = 2, 3, 100, 64
+    args = _wkv6_inputs(rng, b, s, h, dk)
+    args[5][1, 50] = True
+    args = tuple(torch.nn.functional.pad(a, (1, 0))[..., 1:]
+                 for a in args[:4]) + args[4:]
+    o, state = _launch(wkv6, wkv6.wkv6, *args, chunk=64, return_state=True)
+    name = f"wkv6 b={b} h={h} s={s} dk={dk} r.stride={args[0].stride()}"
+    _check(f"{name}, vs wkv6_ref", o, ref.wkv6_ref(*args), *WKV_TOL)
+    _check(f"{name}, final state vs wkv6_two_pass", state,
+           ref.wkv6_two_pass(*args, chunk=64)[1], *WKV_TOL)
+    # rwkv6-3b heads at the serve length: the state entering every chunk
+    # (pass 1's output) against the plain two-pass decomposition, so a
+    # wrong state shows at its chunk
+    b, h, s, dk = 4, 40, 512, 64
+    seg = np.ones((b, s), np.int32)
+    seg[0, 80:], seg[1, 160:], seg[2, 304:], seg[3, 327:] = 2, 2, 2, 2
+    args = _wkv6_inputs(rng, b, s, h, dk, seg)
+    states = torch.empty((b, h, s // 64, dk, dk), device="cuda")
+    o, state = _launch(wkv6, wkv6.wkv6, *args, chunk=64, return_state=True,
+                       chunk_states=states)
+    o_exp, state_exp, states_exp = ref.wkv6_two_pass(*args, chunk=64)
+    name = f"wkv6 b={b} h={h} s={s} dk={dk} resets at 80, 160, 304, 327"
+    _check(f"{name}, entering states vs wkv6_two_pass", states, states_exp,
+           *WKV_TOL)
+    _check(f"{name}, o vs wkv6_two_pass", o, o_exp, *WKV_TOL)
+    _check(f"{name}, final state vs wkv6_two_pass", state, state_exp,
+           *WKV_TOL)
+    _check(f"{name}, o vs wkv6_ref", o, ref.wkv6_ref(*args), *WKV_TOL)
+    _check_steep_wkv6()
+    _check_wkv6_one_chunk()
+
+
+def _steep_wkv6_inputs(scale: float):
+    """rwkv6-3b heads at the serve length with steep decays, loga =
+    -exp(scale N(0, 1)), and one segment start inside each row."""
+    b, h, s, dk = BATCH, 40, PROMPT, 64
+    seg = np.ones((b, s), np.int32)
+    seg[0, 80:], seg[1, 160:], seg[2, 304:], seg[3, 327:] = 2, 2, 2, 2
+    return _wkv6_inputs(np.random.default_rng([7, int(scale * 10)]), b, s,
+                        h, dk, seg, scale=scale)
+
+
+def _steep_distance(o, exact) -> str:
+    """How far ``o`` lies from the float64 ``exact``, against 5e-5 / 5e-4."""
+    err = (o.double() - exact).abs()
+    tol = WKV_TOL[0] + WKV_TOL[1] * exact.abs()
+    return (f"max_abs_err={err.max().item():.3e} worst err/(atol + rtol "
+            f"|exact|)={(err / tol).max().item():.3f} outputs past it="
+            f"{int((err > tol).sum())} of {err.numel()}")
+
+
+def _check_steep_wkv6():
+    """Steep decays at the serve shape: loga down to about -700 (scale 1.5)
+    and -1e5 (scale 2.5).  The kernel sums every exponent over its own
+    range, so it holds 5e-5 / 5e-4 of the float64 sequential oracle, and of
+    ``wkv6_two_pass`` (o, final state).  The plain ``wkv6_chunked`` takes
+    differences of float32 cumsums, which move its outputs past that here:
+    its distance is printed, not checked."""
+    from repro_torch.kernels import ref, wkv6
+    for scale in (1.5, 2.5):
+        args = _steep_wkv6_inputs(scale)
+        o, state = _launch(wkv6, wkv6.wkv6, *args, chunk=64,
+                           return_state=True)
+        o_exp, state_exp, _ = ref.wkv6_two_pass(*args, chunk=64)
+        exact = ref.wkv6_ref(*(a.double() for a in args[:5]), args[5])
+        name = f"wkv6 serve shape, loga scale {scale}"
+        _check(f"{name}, o vs float64 wkv6_ref", o.double(), exact,
+               *WKV_TOL)
+        _check(f"{name}, o vs wkv6_two_pass", o, o_exp, *WKV_TOL)
+        _check(f"{name}, final state vs wkv6_two_pass", state, state_exp,
+               *WKV_TOL)
+        plain = ref.wkv6_chunked(*args[:5], chunk=64, reset=args[5])
+        log(f"[report] {name}, plain wkv6_chunked vs float64 wkv6_ref: "
+            f"{_steep_distance(plain, exact)}")
+
+
+def _check_wkv6_one_chunk():
+    """s within one chunk, so no CTA of pass 2 reads pass 1's scratch: the
+    final state, read by the next operation on the stream, right after the
+    call and in three replays of a CUDA graph of the call and that read."""
+    from repro_torch.kernels import ref, wkv6
+    rng = np.random.default_rng(8)
+    b, h, s, dk = BATCH, 40, 40, 64
+    args = _wkv6_inputs(rng, b, s, h, dk)
+    args[5][1, 20] = True
+    o_exp, state_exp, _ = ref.wkv6_two_pass(*args, chunk=64)
+    name = f"wkv6 b={b} h={h} s={s} dk={dk} chunk=64"
+    o, state = wkv6.wkv6(*args, chunk=64, return_state=True)
+    read = state.clone()
+    torch.cuda.synchronize()
+    _check(f"{name}, o vs wkv6_two_pass", o, o_exp, *WKV_TOL)
+    _check(f"{name}, final state read next vs wkv6_two_pass", read,
+           state_exp, *WKV_TOL)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, state = wkv6.wkv6(*args, chunk=64, return_state=True)
+        read = state.clone()
+    for i in range(3):
+        read.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        _check(f"{name}, CUDA-graph replay {i}, final state read next vs "
+               "wkv6_two_pass", read, state_exp, *WKV_TOL)
 
 
 def _check_reduced_rwkv():
@@ -633,12 +768,21 @@ def _record(name, src, replaces, launches, err, ms, plain_ms, lib_ms,
     return rec
 
 
-def _wkv6_flops(reset, h: int, dk: int, chunk: int) -> int:
+def _wkv6_flops(reset, h: int, dk: int, chunk: int, sub: int = 16) -> int:
     """Operations the chunked WKV6 needs on these resets (an exp counts as
-    one, a multiply-add as two), per head and chunk:
-      * each pair s < t with no reset in (s, t]: its weight, dk x (sub,
-        exp, two multiplies, add), and its A[t,s] v[s] row, 2 dv;
-      * each token: the u bonus, 3 dk, and its v row, 2 dv;
+    one, a multiply-add as two), counted for the sub-chunked form of
+    ``ref.wkv6_two_pass``, the least of the chunked forms known here.  Per
+    head and chunk:
+      * each pair s < t with no reset in (s, t] in one sub-chunk of ``sub``
+        tokens: its weight, dk x (the running product of decays, a
+        multiply, a multiply-add), and its A[t,s] v[s] row, 2 dv;
+      * each such pair across sub-chunks: a dot product of the two
+        factors, 2 dk, and its A[t,s] v[s] row, 2 dv;
+      * each token past the first sub-chunk: its r factor, 2 dk; each
+        query sub-chunk past the first, for every key before it: the k
+        factor, 3 dk;
+      * each token: its decay exp(loga), dk, the u bonus, 3 dk, and its v
+        row, 2 dv;
       * each token with no reset before it in the chunk: r exp(cw), 2 dk,
         and r_q S, 2 dk dv;
       * each token with no reset after it in the chunk: k_hat, 3 dk, and
@@ -648,26 +792,35 @@ def _wkv6_flops(reset, h: int, dk: int, chunk: int) -> int:
     b, s = reset.shape
     L = min(chunk, s)
     n = -(-s // L) * L
-    flags = torch.zeros((b, n), dtype=torch.int64, device=reset.device)
+    dev = reset.device
+    flags = torch.zeros((b, n), dtype=torch.int64, device=dev)
     flags[:, :s] = reset.to(torch.int64)
-    valid = torch.arange(n, device=reset.device) < s
+    valid = (torch.arange(n, device=dev) < s).view(1, -1, L)
     R = flags.view(b, -1, L).cumsum(-1)
-    valid = valid.view(1, -1, L)
-    tri = torch.tril(torch.ones((L, L), dtype=torch.bool,
-                                device=reset.device), diagonal=-1)
-    pairs = int(((R[..., :, None] == R[..., None, :]) & tri
-                 & valid[..., :, None]).sum())
+    pos = torch.arange(L, device=dev)
+    blk = pos // sub
+    live = ((R[..., :, None] == R[..., None, :])
+            & (pos[:, None] > pos[None, :]) & valid[..., :, None])
+    same = blk[:, None] == blk[None, :]
+    diag_pairs = int((live & same).sum())
+    below_pairs = int((live & ~same).sum())
+    r_rows = int((valid & (blk >= 1)).sum())
+    k_rows = int((valid * pos * ((pos % sub == 0) & (pos >= sub))).sum())
     q_rows = int(((R == 0) & valid).sum())
-    k_rows = int(((R == R[..., -1:]) & valid).sum())
-    live = int((R[..., -1] == 0).sum())
+    kh_rows = int(((R == R[..., -1:]) & valid).sum())
+    live_chunks = int((R[..., -1] == 0).sum())
     dv = dk
-    per_head = (pairs * (5 * dk + 2 * dv) + b * s * (3 * dk + 2 * dv)
+    per_head = (diag_pairs * (4 * dk + 2 * dv)
+                + below_pairs * (2 * dk + 2 * dv)
+                + r_rows * 2 * dk + k_rows * 3 * dk
+                + b * s * (4 * dk + 2 * dv)
                 + q_rows * (2 * dk + 2 * dk * dv)
-                + k_rows * (3 * dk + 2 * dk * dv) + live * (dk + dk * dv))
+                + kh_rows * (3 * dk + 2 * dk * dv)
+                + live_chunks * (dk + dk * dv))
     return h * per_head
 
 
-def _time_wkv6(cfg, launches: int) -> dict:
+def _time_wkv6(cfg, launches) -> dict:
     from repro_torch.kernels import ref, wkv6
     b, s, dk, chunk = BATCH, PROMPT, cfg.rwkv_head_dim, cfg.rwkv_chunk
     h = cfg.d_model // dk
@@ -768,11 +921,35 @@ def phase_trace_prefill(arch: str, served: dict):
             f"x{e.count:<5d} {e.key[:90]}")
 
 
+def main_wkv6():
+    """``--only wkv6``: the wkv6 build, checks and timing, no serve run."""
+    from repro_torch.configs import get_config
+    phase_build(("wkv6",))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _check_wkv6()
+    _check_reduced_rwkv()
+    return [_time_wkv6(get_config(RWKV_ARCH), None)]
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", choices=["wkv6"], default=None,
+                        help="run only this kernel's build, checks and "
+                        "timing")
+    args = parser.parse_args()
     name = phase_device()
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
     t0 = time.perf_counter()
+    if args.only == "wkv6":
+        kernels = main_wkv6()
+        log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
+        print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
     phase_build()
     phase_check()
     counts, served = phase_serve(ARCH)

@@ -6,7 +6,9 @@ sends CPU tensors here; on the card they are the kernels' yardstick for
 correctness (not for speed).  Two plain versions of WKV6 sit here: the
 sequential oracle ``wkv6_ref`` and ``wkv6_chunked``, the port of the JAX
 model's chunked path (``repro.models.rwkv.wkv6_chunked``), which
-``models.rwkv`` re-exports under its JAX name.
+``models.rwkv`` re-exports under its JAX name.  A third, ``wkv6_two_pass``,
+repeats the CUDA kernel's decomposition for the tests and chip_smoke.py;
+no model calls it.
 """
 from __future__ import annotations
 
@@ -143,3 +145,110 @@ def wkv6_chunked(r, k, v, loga, u, *, chunk: int, reset,
     if return_state:
         return o, S
     return o
+
+
+WKV6_SUB = 16       # tokens per sub-chunk of the intra-chunk products
+
+
+def wkv6_two_pass(r, k, v, loga, u, reset, *, chunk: int,
+                  sub: int = WKV6_SUB):
+    """The CUDA ``wkv6`` kernel's decomposition, in plain PyTorch: the same
+    function as ``wkv6_chunked``, at any s, ordered as the kernel orders it.
+
+    Pass 1 walks the chunks and keeps the state entering each one.  Pass 2
+    forms each chunk's outputs from its entering state alone.  Its pair
+    weights A[t, s] (s < t, no reset in (s, t]) are built by sub-chunks of
+    ``sub`` tokens: a diagonal block takes one exp per (t, s, i); a block
+    below it (query sub-chunk T, key sub-chunk S < T) is the product of an
+    r factor (the decay from T's first token to t) and a k factor (the
+    decay from s to T's first token), with the reset mask applied after the
+    product.  Every decay is taken over its own range: exp of a sum of
+    loga (running sums within a sub-chunk, the totals of whole sub-chunks),
+    clamped to <= 0, or, in the diagonal blocks and within a key's
+    sub-chunk, a running product of the per-token decays exp(loga).  None
+    is the difference of two cumsums, which in float32 loses about 6e-8
+    |cw| (``wkv6_chunked`` does that, and at steep decays lands past 5e-5 /
+    5e-4 of the exact answer).  Tokens past s, and the rows that pad a
+    chunk to whole sub-chunks, read as zeros with no reset.
+
+    r, k, v, loga: (b, s, h, dk) float32; u: (h, dk); reset: (b, s).
+    Returns o (b, s, h, dk), the final state (b, h, dk, dv) and the states
+    entering each chunk (b, h, nc, dk, dv).
+    """
+    F = torch.nn.functional
+    b, s, h, dk = r.shape
+    L = min(chunk, s)
+    nc, nT = -(-s // L), -(-L // sub)
+    Lp = nT * sub
+
+    def chunks(a):  # (b, s, h, dk) -> (b, h, nc, Lp, dk), zero-padded
+        a = F.pad(a, (0, 0, 0, 0, 0, nc * L - s)).reshape(b, nc, L, h, dk)
+        return F.pad(a, (0, 0, 0, 0, 0, Lp - L)).permute(0, 3, 1, 2, 4)
+
+    def excl(a, dim):  # running sum along ``dim`` of the entries before
+        a = a.movedim(dim, -1)
+        return F.pad(a, (1, 0))[..., :-1].cumsum(-1).movedim(-1, dim)
+
+    def ex(a):
+        return torch.exp(torch.clamp(a, max=0.0))
+
+    rc, kc, vc, lac = map(chunks, (r, k, v, loga))
+    flags = F.pad(reset.to(torch.int32), (0, nc * L - s)).reshape(b, nc, L)
+    R = F.pad(flags, (0, Lp - L)).cumsum(-1)[:, None]      # (b, 1, nc, Lp)
+    x = lac.reshape(b, h, nc, nT, sub, dk)
+    lp = excl(x, 4)                    # decay over the sub-chunk before t
+    ls = excl(x.flip(4), 4).flip(4)    # decay over the sub-chunk after s
+    tot = x.sum(4)                                  # (b, h, nc, nT, dk)
+    base = excl(tot, 3)                # the sub-chunks before T
+    after = excl(tot.flip(3), 3).flip(3)            # the sub-chunks after
+
+    # pass 1: S_{c+1} = dec_c S_c + k_hat_c^T v_c
+    R_last = R[..., -1:]
+    k_hat = kc * torch.where((R == R_last)[..., None],
+                             ex(ls + after[..., None, :]).reshape(kc.shape),
+                             0.0)
+    dec = torch.where((R_last == 0)[..., None], ex(tot.sum(3))[..., None, :],
+                      0.0)
+    kv = torch.einsum("bhcsi,bhcsj->bhcij", k_hat, vc)
+    S = torch.zeros((b, h, dk, dk), dtype=torch.float32, device=r.device)
+    states = []
+    for c in range(nc):
+        states.append(S)
+        S = dec[:, :, c, 0, :, None] * S + kv[:, :, c]
+    states = torch.stack(states, 2)
+
+    # pass 2: o = r_q S_c + A v + (r . (u * k)) v
+    q = rc * torch.where((R == 0)[..., None],
+                         ex(base[..., None, :] + lp).reshape(rc.shape), 0.0)
+    o = torch.einsum("bhcti,bhcij->bhctj", q, states)
+    rb, kb = rc.reshape(x.shape), kc.reshape(x.shape)
+    d = ex(x)                                       # per-token decays
+
+    def after_prod(a):  # product along the sub-chunk of the entries after
+        return excl_prod(a.flip(-2)).flip(-2)
+
+    def excl_prod(a):   # running product along dim -2 of the entries before
+        return F.pad(a.movedim(-2, -1), (1, 0), value=1.0)[..., :-1] \
+            .cumprod(-1).movedim(-1, -2)
+
+    w = torch.zeros((b, h, nc, nT, sub, sub, dk), device=r.device)
+    for t in range(1, sub):     # w[t, s] = product of d over (s, t)
+        w[..., t, :t, :] = after_prod(d[..., :t, :])
+    A_diag = torch.einsum("...ti,...si,...tsi->...ts", rb, kb, w)
+    A = torch.zeros((b, h, nc, nT, sub, nT, sub), device=r.device)
+    for T in range(nT):
+        A[:, :, :, T, :, T, :] = A_diag[:, :, :, T]
+        r_fac = rb[:, :, :, T] * ex(lp[:, :, :, T])
+        for S_ in range(T):
+            mid = torch.zeros_like(tot[:, :, :, 0])
+            for U in range(S_ + 1, T):
+                mid = mid + tot[:, :, :, U]
+            k_fac = kb[:, :, :, S_] * (after_prod(d[:, :, :, S_])
+                                       * ex(mid)[..., None, :])
+            A[:, :, :, T, :, S_, :] = r_fac @ k_fac.transpose(-1, -2)
+    A = A.reshape(b, h, nc, Lp, Lp)
+    A = torch.where(R[..., :, None] == R[..., None, :], A, 0.0)
+    bonus = torch.einsum("bhcti,hi,bhcti->bhct", rc, u, kc)
+    o = o + A @ vc + bonus[..., None] * vc
+    o = o[:, :, :, :L].permute(0, 2, 3, 1, 4).reshape(b, nc * L, h, dk)
+    return o[:, :s], S, states

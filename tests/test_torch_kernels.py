@@ -281,3 +281,92 @@ def test_wkv6_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         wkv6.wkv6(x, x, x, x, torch.zeros((2, 16)), reset, chunk=16)
     assert wkv6.launches == before
+
+
+def _wkv6_case(b, h, s, dk, scale, resets=()):
+    """``_wkv6_inputs``'s scales with loga = -exp(scale * N(0, 1)): scale
+    1.5 takes loga down to about -700.  Every row resets at token 0, and
+    row ``i`` also at each ``t`` of ``(i, t)`` in ``resets``."""
+    rng = np.random.default_rng([b, h, s, dk, int(scale * 10)])
+    r, k, v = (rng.normal(size=(b, s, h, dk)).astype(np.float32) * 0.5
+               for _ in range(3))
+    loga = -np.exp(rng.normal(size=(b, s, h, dk)).astype(np.float32)
+                   * scale)
+    u = rng.normal(size=(h, dk)).astype(np.float32) * 0.5
+    reset = np.zeros((b, s), bool)
+    reset[:, 0] = True
+    for i, t in resets:
+        reset[i, t] = True
+    return r, k, v, loga, u, reset
+
+
+# On sub-chunk edges (t = 16, 32, 48 of a 64-token chunk: 16, 96, 48) and
+# mid-sub-chunk (107, 69), in two rows.
+WKV6_RESETS = ((0, 16), (0, 96), (0, 107), (1, 48), (1, 69))
+
+
+@pytest.mark.parametrize("scale", [0.5, 1.5])
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+@pytest.mark.parametrize("dk", [16, 32, 64])
+def test_wkv6_two_pass_matches_jax(dk, chunk, scale):
+    """The kernel's decomposition against JAX's chunked path (o and the
+    final state) and its sequential oracle (o)."""
+    args = _wkv6_case(2, 2, 128, dk, scale, WKV6_RESETS)
+    t = [torch.from_numpy(a) for a in args]
+    o, state, states = ref.wkv6_two_pass(*t, chunk=chunk)
+    assert o.shape == (2, 128, 2, dk) and state.shape == (2, 2, dk, dk)
+    assert states.shape == (2, 2, 128 // chunk, dk, dk)
+    o_exp, state_exp = jrwkv.wkv6_chunked(*args[:5], chunk=chunk,
+                                          reset=args[5], return_state=True)
+    _wkv_close(o, o_exp)
+    _wkv_close(state, state_exp)
+    _wkv_close(o, jref.wkv6_ref(*args))
+
+
+@pytest.mark.parametrize("s,dk,chunk", [
+    (200, 64, 64),     # a ragged last chunk of 8 tokens
+    (40, 32, 64),      # one chunk of 40: a ragged last sub-chunk
+    (200, 16, 24),     # chunks of 24: sub-chunks of 16 and 8
+])
+def test_wkv6_two_pass_ragged_matches_jax_ref(s, dk, chunk):
+    args = _wkv6_case(2, 2, s, dk, 0.5, ((0, s // 2), (1, 16)))
+    o, _, _ = ref.wkv6_two_pass(*map(torch.from_numpy, args), chunk=chunk)
+    assert o.shape == (2, s, 2, dk)
+    _wkv_close(o, jref.wkv6_ref(*args))
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_wkv6_two_pass_entering_states_match_jax(chunk):
+    """The state entering chunk c is JAX's final state over tokens
+    [0, c * chunk)."""
+    s = 192
+    args = _wkv6_case(2, 2, s, 32, 0.5, WKV6_RESETS)
+    _, _, states = ref.wkv6_two_pass(*map(torch.from_numpy, args),
+                                     chunk=chunk)
+    assert not states[:, :, 0].any()
+    for c in range(1, s // chunk):
+        n = c * chunk
+        _, exp = jrwkv.wkv6_chunked(*(a[:, :n] for a in args[:4]), args[4],
+                                    chunk=chunk, reset=args[5][:, :n],
+                                    return_state=True)
+        _wkv_close(states[:, :, c], exp)
+
+
+def test_wkv6_two_pass_finite_at_steep_decays():
+    """loga down to about -1e5, where the differences of float32 cumsums
+    that ``wkv6_chunked`` takes lose far more than the tolerance: the
+    outputs, the final state and the entering states stay finite."""
+    args = _wkv6_case(2, 2, 128, 64, 2.5, WKV6_RESETS)
+    assert args[3].min() < -1e4
+    for out in ref.wkv6_two_pass(*map(torch.from_numpy, args), chunk=64):
+        assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_wkv6_two_pass_matches_jax_ref_at_steep_decays(chunk):
+    """loga down to about -1e5: the decomposition sums every exponent over
+    its own range, so it still holds the sequential oracle's tolerance."""
+    args = _wkv6_case(2, 2, 128, 64, 2.5, WKV6_RESETS)
+    assert args[3].min() < -1e4
+    o, _, _ = ref.wkv6_two_pass(*map(torch.from_numpy, args), chunk=chunk)
+    _wkv_close(o, jref.wkv6_ref(*args))
