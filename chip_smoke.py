@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only wkv6
+    python3 chip_smoke.py --only train
 
 Phases (any failure raises, and the exit code is not 0):
   1. device  — the card's name, count and power limit; no card, no run.
-  2. build   — nvcc builds the three CUDA kernels of ``src/repro_torch/
+  2. build   — nvcc builds the four CUDA kernels of ``src/repro_torch/
                kernels/csrc`` (in parallel) into ``build/repro_torch_kernels``.
   3. check   — each kernel against its plain PyTorch version on the card,
                TF32 off: packed_attention and flash_decode at qwen3-8b head
@@ -19,7 +20,16 @@ Phases (any failure raises, and the exit code is not 0):
                oracle, a single chunk whose final state is read next and
                in CUDA-graph replays) and more; then
                reduced qwen3-8b and reduced rwkv6-3b prefill + decode on
-               the card against the CPU.
+               the card against the CPU.  The training checks: the
+               forward's log-sum-exp and the backward kernel
+               (packed_attention_bwd, bf16, d 16/64/128; MHA, GQA, MQA,
+               causal and sq != sk, ragged tails, short segments, padding
+               tiles and rows) against ``packed_attention_bwd_ref`` and
+               autograd of ``packed_attention_ref``, two calls bitwise
+               equal; the kernels with no backward raising under grad;
+               qwen3-8b at full width with 2 layers, loss and every
+               gradient, kernels against plain attention; reduced qwen3-8b
+               memorising one batch through the kernels.
   4. serve   — ``repro_torch.launch.serve`` on qwen3-8b (36 layers, d_model
                4096) and then on rwkv6-3b (32 layers, d_model 2560), each at
                its published width and depth with random weights from a
@@ -31,20 +41,31 @@ Phases (any failure raises, and the exit code is not 0):
                each serve run's own model and cache: the device's busy
                share, the share of the hand-written kernels, and the
                kernels that take its time.
-  6. time    — each kernel at the serving shapes (CUDA events around a
+  6. train   — qwen3-8b at full width with 8 of its 36 layers, AdamW on
+               float32 master weights: 5 steps through ``train_step`` on
+               one packed batch of 4 x 1024 (counts set to 0 before, read
+               after: 8 forward and 8 backward launches a step), losses,
+               step time, tokens/s and peak memory; one step by its parts
+               (forward, backward, update) and one under the profiler.
+  7. time    — each kernel at the serving shapes (CUDA events around a
                CUDA-graph replay, and around eager calls), beside its plain
                version, one PyTorch library call where there is one, and
-               its bound.
-The line before the last is a JSON ``kernels`` record; the last line is
-``{"ok": true, "device": {...}}``.
+               its bound; the backward kernel at the training shape.
+The line before the last is a JSON ``kernels`` record (each kernel's
+``launches`` summed over the serve runs and the training run); the last
+line is ``{"ok": true, "device": {...}}``.
 
 ``--only wkv6`` is the short loop for the wkv6 kernel: phase 1, the wkv6
 build, its phase-3 checks (``_check_wkv6``, ``_check_reduced_rwkv``) and
 its timing, with no serve run (so its record's ``launches`` is null).
+``--only train`` is the short loop for training: phase 1, the builds of
+packed_attention and packed_attention_bwd, the training checks, phase 6
+and the backward kernel's record.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -63,8 +84,22 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 # for outputs below 1 in magnitude.
 SERVE_DECODE_TOL = 2e-3
 WKV_TOL = (5e-5, 5e-4)             # atol, rtol: tests/test_kernels.py:106
+# the forward kernel's log-sum-exp against the plain one: float32 sums of
+# the same bf16 products in another order, and exp2 on the SFU (~2 ulp)
+LSE_TOL = 1e-4
+# kernels vs plain attention in a bf16 training step of qwen3-8b at full
+# width: the loss (a mean over ~2,000 tokens) to a relative 2e-3, and each
+# leaf's gradient to a relative L2 of 3e-2, the CPU tests' JAX-vs-port
+# gradient tolerance (tests/test_torch_train.py)
+LOSS_REL_TOL = 2e-3
+GRAD_REL_L2 = 3e-2
 ARCH, BATCH, PROMPT, GEN = "qwen3-8b", 4, 512, 32
 RWKV_ARCH = "rwkv6-3b"             # served at the same batch, prompt, gen
+# the training run: qwen3-8b at full width with 8 of its 36 layers (the
+# float32 weights, grads and two moments of 36 layers, ~131 GB, do not fit
+# one card; 8 take ~45 GB, ~50 GB with the bf16 copy)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4, 1024, 5
+TRAIN_PARAMS = 2_788_235_264
 
 
 def log(msg: str):
@@ -581,16 +616,272 @@ def _check_reduced_rwkv():
                states[0][n], states[1][n], 2e-3)
 
 
+# ------------------------------------------------------ 3. train checks
+def _train_segs(rng, b, s):
+    """Packed training rows: segments of 32-256 tokens drawn from ``rng``
+    until the next would not fit; the rest of the row is padding (0)."""
+    seg = np.zeros((b, s), np.int32)
+    for i in range(b):
+        pos, sid = 0, 1
+        while True:
+            ln = int(rng.integers(32, 257))
+            if pos + ln > s:
+                break
+            seg[i, pos:pos + ln] = sid
+            pos, sid = pos + ln, sid + 1
+    return seg
+
+
+def _lm_batch(rng, vocab: int, seg: np.ndarray,
+              next_token: bool = False) -> dict:
+    """A packed LM batch on the card: positions restart at every segment;
+    labels -1 on padding and, as tests/conftest.make_lm_batch makes them,
+    the tokens themselves, or with ``next_token`` each segment's next
+    tokens and -1 on its last, as the data plane packs them
+    (src/repro/data/packing.py:66)."""
+    b, s = seg.shape
+    tokens = rng.integers(1, vocab, (b, s)).astype(np.int32)
+    pos = np.zeros((b, s), np.int32)
+    labels = np.where(seg > 0, tokens, -1).astype(np.int32)
+    for i in range(b):
+        for sid in np.unique(seg[i][seg[i] > 0]):
+            idx = np.flatnonzero(seg[i] == sid)
+            pos[i, idx] = np.arange(len(idx))
+            if next_token:
+                labels[i, idx[:-1]] = tokens[i, idx[1:]]
+                labels[i, idx[-1]] = -1
+    return {k: torch.as_tensor(v, device="cuda") for k, v in (
+        ("tokens", tokens), ("segment_ids", seg), ("positions", pos),
+        ("labels", labels))}
+
+
+def _check_lse(name, got, exp, tol) -> float:
+    """Equal +inf where a row has no valid key, allclose elsewhere."""
+    inf = torch.isinf(exp)
+    if not torch.equal(torch.isinf(got), inf) or (got[inf] < 0).any():
+        raise AssertionError(f"{name}: rows with no valid key differ")
+    return _check(name, got[~inf], exp[~inf], tol)
+
+
+def _check_pa_bwd(rng, b, h, kh, sq, sk, d, causal, q_seg, kv_seg, what=""):
+    """The backward kernel against both plain versions, bf16: the forward's
+    lse against ``packed_attention_lse_ref``, then dq, dk, dv against
+    ``packed_attention_bwd_ref`` (on the kernel's own out and lse) and
+    against autograd of ``packed_attention_ref``; two calls on the same
+    inputs must agree bit for bit."""
+    from repro_torch.kernels import packed_attention, packed_attention_bwd
+    from repro_torch.kernels import ref
+    bf = torch.bfloat16
+    q, k, v = (_bshd(rng, b, sq, h, d, bf), _bshd(rng, b, sk, kh, d, bf),
+               _bshd(rng, b, sk, kh, d, bf))
+    dout = _bshd(rng, b, sq, h, d, bf)
+    q_seg = torch.as_tensor(q_seg, device="cuda")
+    kv_seg = torch.as_tensor(kv_seg, device="cuda")
+    tag = (f"packed_attention_bwd b={b} h={h} kh={kh} sq={sq} sk={sk} d={d} "
+           f"causal={causal}{what}")
+    out, lse = _launch(packed_attention, packed_attention.packed_attention,
+                       q, k, v, q_seg, kv_seg, causal=causal, return_lse=True)
+    _check_lse(f"{tag}: forward lse", lse, ref.packed_attention_lse_ref(
+        q, k, q_seg, kv_seg, causal=causal), LSE_TOL)
+    got = _launch(packed_attention_bwd, packed_attention_bwd.
+                  packed_attention_bwd, q, k, v, out, lse, dout, q_seg,
+                  kv_seg, causal=causal)
+    again = packed_attention_bwd.packed_attention_bwd(
+        q, k, v, out, lse, dout, q_seg, kv_seg, causal=causal)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{tag}: two calls differ (not deterministic)")
+    plain = ref.packed_attention_bwd_ref(q, k, v, out, lse, dout, q_seg,
+                                         kv_seg, causal=causal)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref.packed_attention_ref(*leaves, q_seg, kv_seg, causal=causal
+                             ).backward(dout)
+    err = 0.0
+    for name, g, p_, a in zip(("dq", "dk", "dv"), got, plain, leaves):
+        err = max(err, _check(f"{tag}: {name} vs packed_attention_bwd_ref", g,
+                              p_, TOL[bf]),
+                  _check(f"{tag}: {name} vs autograd of "
+                         "packed_attention_ref", g, a.grad, TOL[bf]))
+    log(f"[check] {tag}: dq, dk, dv bitwise equal over two calls")
+    return err
+
+
+def _check_packed_attention_bwd():
+    """The shapes the backward kernel can break (64-row q and kv tiles,
+    D padded to 16/32/64/128), at d 16, 64 and 128."""
+    rng = np.random.default_rng(7)
+    cases = [  # (b, h, kh, sq, sk, d, causal), segments from _segs
+        (2, 8, 2, 1000, 1000, 128, True),   # GQA, ragged tail
+        (2, 8, 8, 300, 300, 64, True),      # MHA
+        (2, 8, 1, 200, 200, 16, True),      # MQA, d = 16
+        (2, 8, 2, 200, 333, 128, False),    # sq != sk
+        (2, 4, 1, 130, 70, 64, False),      # MQA, sq > sk
+        (1, 4, 2, 65, 65, 16, True),        # one row past a tile
+    ]
+    for b, h, kh, sq, sk, d, causal in cases:
+        q_seg = _segs(rng, b, sq)
+        kv_seg = q_seg if sq == sk else _segs(rng, b, sk)
+        _check_pa_bwd(rng, b, h, kh, sq, sk, d, causal, q_seg, kv_seg)
+    # short segments that start mid-tile, q and kv ids apart (rows with no
+    # valid key in live tiles), an all-padding q tile, a padding batch row
+    short = np.repeat(np.arange(1, 301), rng.integers(3, 40, 300))[:300]
+    short = np.stack([short, short]).astype(np.int32)
+    _check_pa_bwd(rng, 2, 8, 2, 300, 300, 64, True, short, short,
+                  " short segments")
+    for causal in (True, False):
+        _check_pa_bwd(rng, 2, 8, 2, 300, 300, 128, causal,
+                      _segs(rng, 2, 300), _segs(rng, 2, 300),
+                      " q and kv ids apart")
+    seg = _segs(rng, 2, 256)
+    seg[0, 64:128] = 0
+    seg[1] = 0
+    _check_pa_bwd(rng, 2, 8, 2, 256, 256, 128, True, seg, seg,
+                  " padding q tile and padding row")
+
+
+def _check_grad_guards():
+    """Fault C1: under grad, the kernels with no backward raise on the card
+    (before they build or launch anything)."""
+    from repro_torch.kernels import ops
+    x = torch.zeros((2, 4, 64, 16), device="cuda", requires_grad=True)
+    seg = torch.ones((2, 64), dtype=torch.int32, device="cuda")
+    reset = torch.zeros((2, 64), dtype=torch.bool, device="cuda")
+    calls = {
+        "packed_attention float32": lambda: ops.packed_attention(
+            x, x, x, seg, seg),
+        "decode_attention": lambda: ops.decode_attention(
+            x[:, :, 0], x, x, torch.full((2,), 64, dtype=torch.int32,
+                                         device="cuda")),
+        "wkv6": lambda: ops.wkv6(x, x, x, x, x[0, 0, :4], reset, chunk=16),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "ROADMAP.md" not in str(e):
+                raise
+            log(f"[check] {name} under grad on the card raises: {e}")
+            continue
+        raise AssertionError(f"{name} under grad did not raise")
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The models' attention runs the plain version on the card inside this
+    context (autograd differentiates it), for the kernels-vs-plain check."""
+    from repro_torch.kernels import ops, ref
+    kernel = ops.packed_attention
+    ops.packed_attention = ref.packed_attention_ref
+    try:
+        yield
+    finally:
+        ops.packed_attention = kernel
+
+
+def _check_full_width_grads():
+    """qwen3-8b at full width with 2 layers, one packed batch of 2 x 1024:
+    the loss and every leaf's gradient with the kernels against the plain
+    attention on the same weights (relative L2 <= GRAD_REL_L2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.train_step import init_train_state, make_loss_fn
+    cfg = get_config(ARCH).replace(num_layers=2)
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(5))
+    state = init_train_state(model)
+    rng = np.random.default_rng(5)
+    batch = _lm_batch(rng, cfg.vocab_size, _train_segs(rng, 2, TRAIN_SEQ),
+                      next_token=True)
+    loss_fn = make_loss_fn(model)
+
+    def run():
+        total, _ = loss_fn(state.params, batch)
+        total.backward()
+        grads = {}
+        for path, p in tree_leaves(state.params):
+            grads[path], p.grad = p.grad, None
+        return total.item(), grads
+
+    _zero_launch_counts()
+    loss_k, grads_k = run()
+    counts = _launch_counts()
+    if counts["packed_attention"] != 2 or counts["packed_attention_bwd"] != 2:
+        raise AssertionError(f"2-layer step launched {counts}")
+    with _plain_attention():
+        loss_p, grads_p = run()
+    if _launch_counts() != counts:
+        raise AssertionError("the plain run launched a kernel")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[check] qwen3-8b 2 layers full width, kernels vs plain attention: "
+        f"loss {loss_k:.6f} vs {loss_p:.6f} relative {rel:.3e} (limit "
+        f"{LOSS_REL_TOL:g}) {'ok' if rel <= LOSS_REL_TOL else 'FAIL'}")
+    worst = max(((torch.linalg.vector_norm(grads_k[n] - grads_p[n])
+                  / torch.linalg.vector_norm(grads_p[n])).item(), n)
+                for n in grads_p)
+    log(f"[check] qwen3-8b 2 layers full width, kernels vs plain attention: "
+        f"worst gradient relative L2 {worst[0]:.3e} ({worst[1]}; limit "
+        f"{GRAD_REL_L2:g}) {'ok' if worst[0] <= GRAD_REL_L2 else 'FAIL'}")
+    if rel > LOSS_REL_TOL or not worst[0] <= GRAD_REL_L2:
+        raise AssertionError("full-width gradients disagree with the plain "
+                             "path")
+
+
+def _check_memorise():
+    """Reduced qwen3-8b (head_dim 16) memorises one batch on the card
+    through the kernels: the loss falls below 0.8x its first value in 12
+    steps (tests/test_train.py:50-66)."""
+    from repro_torch.configs.qwen3_8b import reduced
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    cfg = reduced()
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    state = init_train_state(model)
+    step = make_train_step(model, AdamWConfig(peak_lr=5e-3, warmup_steps=5,
+                                              total_steps=100))
+    seg = np.ones((4, 64), np.int32)       # make_lm_batch(cfg, 4, 64)
+    seg[:, 30:60], seg[:, 60:] = 2, 0
+    batch = _lm_batch(np.random.default_rng(3), cfg.vocab_size, seg)
+    _zero_launch_counts()
+    losses = []
+    for _ in range(12):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+    counts = _launch_counts()
+    want = 12 * cfg.num_layers
+    ok = (losses[-1] < 0.8 * losses[0] and np.isfinite(losses).all()
+          and counts["packed_attention"] == want
+          and counts["packed_attention_bwd"] == want)
+    log(f"[check] reduced qwen3-8b memorises one batch on the card: losses "
+        f"{[round(x, 4) for x in losses]}, launches {counts} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("reduced qwen3-8b did not memorise its batch "
+                             "through the kernels")
+
+
+def phase_check_train():
+    _check_packed_attention_bwd()
+    _check_grad_guards()
+    _check_full_width_grads()
+    torch.cuda.empty_cache()
+    _check_memorise()
+
+
 # ------------------------------------------------------------- 4. serve
 def _launch_counts() -> dict:
-    from repro_torch.kernels import flash_decode, packed_attention, wkv6
+    from repro_torch.kernels import (flash_decode, packed_attention,
+                                     packed_attention_bwd, wkv6)
     return {"packed_attention": packed_attention.launches,
+            "packed_attention_bwd": packed_attention_bwd.launches,
             "flash_decode": flash_decode.launches, "wkv6": wkv6.launches}
 
 
 def _zero_launch_counts():
-    from repro_torch.kernels import flash_decode, packed_attention, wkv6
-    packed_attention.launches = flash_decode.launches = wkv6.launches = 0
+    from repro_torch.kernels import (flash_decode, packed_attention,
+                                     packed_attention_bwd, wkv6)
+    packed_attention.launches = packed_attention_bwd.launches = 0
+    flash_decode.launches = wkv6.launches = 0
 
 
 def phase_serve(arch: str) -> tuple[dict, dict]:
@@ -619,10 +910,11 @@ def phase_serve(arch: str) -> tuple[dict, dict]:
     log(f"[serve] {arch} launches on the path: {counts}")
     L = cfg.num_layers
     if cfg.family == "ssm":     # the WKV kernel once per layer, in prefill
-        want = {"packed_attention": 0, "flash_decode": 0, "wkv6": L}
+        want = {"packed_attention": 0, "packed_attention_bwd": 0,
+                "flash_decode": 0, "wkv6": L}
     else:
-        want = {"packed_attention": L, "flash_decode": L * (PROMPT + GEN),
-                "wkv6": 0}
+        want = {"packed_attention": L, "packed_attention_bwd": 0,
+                "flash_decode": L * (PROMPT + GEN), "wkv6": 0}
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
     for key in ("prefill_logits", "logits"):
@@ -634,7 +926,7 @@ def phase_serve(arch: str) -> tuple[dict, dict]:
     return counts, out
 
 
-# -------------------------------------------------------------- 6. time
+# -------------------------------------------------------------- 7. time
 def _time_ms(fn, arg_sets, iters: int) -> tuple[float, float]:
     """Mean ms per call over ``iters`` calls cycling through ``arg_sets``
     (distinct buffers, so the 50 MB L2 holds none of them between calls).
@@ -666,6 +958,21 @@ def _time_ms(fn, arg_sets, iters: int) -> tuple[float, float]:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters, eager
+
+
+def _time_eager_ms(fn, arg_sets, iters: int) -> float:
+    """Mean ms per call of ``fn`` issued from Python, by CUDA events, for a
+    call that cannot be captured in a CUDA graph (autograd's backward)."""
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    start, end = _events(), _events()
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _nbytes(*tensors) -> int:
@@ -848,13 +1155,192 @@ def _time_wkv6(cfg, launches) -> dict:
                    no_library="no single PyTorch call computes WKV6")
 
 
-def phase_time(counts: dict) -> list:
+def phase_time(counts: dict, train_seg: np.ndarray) -> list:
     from repro_torch.configs import get_config
     qwen, rwkv = get_config(ARCH), get_config(RWKV_ARCH)
     torch.cuda.empty_cache()
     return [_time_packed_attention(qwen, counts["packed_attention"]),
             _time_flash_decode(qwen, counts["flash_decode"]),
-            _time_wkv6(rwkv, counts["wkv6"])]
+            _time_wkv6(rwkv, counts["wkv6"]),
+            _time_packed_attention_bwd(qwen, counts["packed_attention_bwd"],
+                                       train_seg)]
+
+
+# ------------------------------------------------------------- 6. train
+def _events():
+    return torch.cuda.Event(enable_timing=True)
+
+
+def phase_train() -> tuple[dict, np.ndarray]:
+    """qwen3-8b at full width with TRAIN_LAYERS of its 36 layers, AdamW on
+    float32 master weights, TRAIN_STEPS steps through ``train_step`` on one
+    packed batch of TRAIN_BATCH x TRAIN_SEQ (seeded ragged segments,
+    next-token labels, -1 on padding and on each segment's last token),
+    every kernel's count set to 0 just before the steps and
+    read just after; then one more step by its parts (forward, backward,
+    update) between CUDA events, and one step under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    from repro_torch.train.train_step import (init_train_state, make_loss_fn,
+                                              make_train_step)
+    from repro_torch.models.params import tree_leaves, tree_map
+    cfg = get_config(ARCH).replace(num_layers=TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"{n_params} parameters, not {TRAIN_PARAMS}")
+    state = init_train_state(model)
+    opt_cfg = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=1000)
+    step = make_train_step(model, opt_cfg)
+    rng = np.random.default_rng(11)
+    seg = _train_segs(rng, TRAIN_BATCH, TRAIN_SEQ)
+    batch = _lm_batch(rng, cfg.vocab_size, seg, next_token=True)
+    lengths = [np.bincount(r[r > 0]).tolist()[1:] for r in seg]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] {ARCH} layers={cfg.num_layers} of 36 d_model={cfg.d_model} "
+        f"params={n_params} batch={TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"loss tokens={int((batch['labels'] >= 0).sum())} segment lengths "
+        f"{lengths}")
+
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = _events(), _events()
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(metrics["loss"].item())
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"packed_attention": cfg.num_layers * TRAIN_STEPS,
+            "packed_attention_bwd": cfg.num_layers * TRAIN_STEPS,
+            "flash_decode": 0, "wkv6": 0}
+    steady = float(np.mean(step_ms[1:]))
+    log(f"[train] losses {losses}")
+    log(f"[train] step ms (CUDA events) {[round(t, 3) for t in step_ms]}; "
+        f"steps 2-{TRAIN_STEPS} mean {steady:.3f} ms, "
+        f"{tokens / steady * 1e3:.1f} tokens/s")
+    log(f"[train] max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB)")
+    log(f"[train] launches on the path: {counts} (per step: "
+        f"{ {k: v / TRAIN_STEPS for k, v in counts.items()} })")
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts} != expected {want}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}: not finite or not "
+                             "falling")
+
+    # one step by its parts: forward (the loss), backward, AdamW
+    loss_fn = make_loss_fn(model)
+    ev = [_events() for _ in range(4)]
+    ev[0].record()
+    total, _ = loss_fn(state.params, batch)
+    ev[1].record()
+    total.backward()
+    ev[2].record()
+    grads = tree_map(lambda p: p.grad, state.params)
+    _, state_opt, _ = adamw_update(opt_cfg, grads, state.opt, state.params)
+    ev[3].record()
+    ev[3].synchronize()
+    state = state._replace(opt=state_opt)
+    for _, p in tree_leaves(state.params):
+        p.grad = None
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    log(f"[train] one step by its parts (CUDA events): forward "
+        f"{split[0]:.3f} ms, backward {split[1]:.3f} ms, update "
+        f"{split[2]:.3f} ms")
+
+    # one step under the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    attn = {n: sum(e.self_device_time_total for e in kernels
+                   if any(w in e.key for w in words)) / 1e3
+            for n, words in (("forward", ("packed_attention_tc_kernel",)),
+                             ("backward", ("dkdv_kernel", "dq_kernel",
+                                           "delta_kernel")))}
+    log(f"[trace] {ARCH} train step ({cfg.num_layers} layers, "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}): wall_ms={wall_ms:.3f} (profiler on) "
+        f"device_busy_ms={busy_ms:.3f} busy_share={busy_ms / wall_ms:.4f} "
+        f"kernel_launches={sum(e.count for e in kernels)} "
+        f"attention_forward_ms={attn['forward']:.3f} "
+        f"attention_backward_ms={attn['backward']:.3f} "
+        f"attention_share_of_busy="
+        f"{(attn['forward'] + attn['backward']) / busy_ms:.4f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[trace]   {e.self_device_time_total / 1e3:9.4f} ms "
+            f"x{e.count:<5d} {e.key[:90]}")
+    return counts, seg
+
+
+def _time_packed_attention_bwd(cfg, launches, seg: np.ndarray) -> dict:
+    """The backward kernel at the training shape (TRAIN_BATCH x TRAIN_SEQ,
+    qwen3-8b heads, the training run's segment ids, causal), beside its
+    plain version and SDPA's backward (autograd of
+    ``F.scaled_dot_product_attention`` with the same boolean mask, eager,
+    timed as a yardstick only).  Bound: 10 d FLOP per valid (q, k) pair;
+    q, k, v, o, dO, lse, dq, dk and dv moved once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import packed_attention, packed_attention_bwd
+    from repro_torch.kernels import ref
+    b, s = seg.shape
+    h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    bf = torch.bfloat16
+    rng = np.random.default_rng(12)
+    segs = torch.as_tensor(seg, device="cuda")
+    sets = []
+    for _ in range(4):
+        q, k, v = (_bshd(rng, b, s, h, d, bf), _bshd(rng, b, s, kh, d, bf),
+                   _bshd(rng, b, s, kh, d, bf))
+        out, lse = packed_attention.packed_attention(q, k, v, segs, segs,
+                                                     return_lse=True)
+        sets.append((q, k, v, out, lse, _bshd(rng, b, s, h, d, bf), segs,
+                     segs))
+    got = packed_attention_bwd.packed_attention_bwd(*sets[0])
+    exp = ref.packed_attention_bwd_ref(*sets[0])
+    err = max(_check(f"packed_attention_bwd training shape {name}", g, e,
+                     TOL[bf]) for name, g, e in zip(("dq", "dk", "dv"), got,
+                                                    exp))
+    ms = _time_ms(packed_attention_bwd.packed_attention_bwd, sets, 20)
+    plain_ms = _time_ms(ref.packed_attention_bwd_ref, sets, 4)
+    causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device="cuda"))
+    # padding rows attend to padding keys here, so no row is empty (an
+    # empty row would make SDPA's softmax NaN)
+    mask = causal[None, None] & (segs[:, None, :, None]
+                                 == segs[:, None, None, :])
+    lib_sets = []
+    for q, k, v, _, _, dout, _, _ in sets:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                           enable_gqa=True)
+        lib_sets.append((o, leaves, dout))
+
+    def library(o, leaves, dout):
+        return torch.autograd.grad(o, leaves, dout, retain_graph=True)
+    lib_ms = _time_eager_ms(library, lib_sets, 20)
+    pairs = sum(int(n) * (int(n) + 1) // 2 for row in seg
+                for n in np.bincount(row[row > 0])[1:]) * h
+    log(f"[time] packed_attention_bwd training shape: {pairs} valid (q, k) "
+        f"pairs of {b * h * s * (s + 1) // 2} causal ones")
+    q, k, v, out, lse, dout = sets[0][:6]
+    nbytes = _nbytes(q, k, v, out, dout, lse, *got)
+    return _record("packed_attention_bwd", "packed_attention_bwd.cu",
+                   "none: JAX differentiates segment_attention, "
+                   "src/repro/models/attention.py:70", launches, err, ms,
+                   plain_ms, (lib_ms, lib_ms), nbytes, 10 * d * pairs,
+                   PEAK_FLOPS[bf])
 
 
 # ------------------------------------------------------------- 5. trace
@@ -932,18 +1418,31 @@ def main_wkv6():
     return [_time_wkv6(get_config(RWKV_ARCH), None)]
 
 
+def main_train():
+    """``--only train``: the two attention kernels' build, the training
+    checks, the training run and the backward kernel's record."""
+    from repro_torch.configs import get_config
+    phase_build(("packed_attention", "packed_attention_bwd"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_check_train()
+    counts, seg = phase_train()
+    return [_time_packed_attention_bwd(get_config(ARCH),
+                                       counts["packed_attention_bwd"], seg)]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["wkv6"], default=None,
-                        help="run only this kernel's build, checks and "
+    parser.add_argument("--only", choices=["wkv6", "train"], default=None,
+                        help="run only this path's builds, checks and "
                         "timing")
     args = parser.parse_args()
     name = phase_device()
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
     t0 = time.perf_counter()
-    if args.only == "wkv6":
-        kernels = main_wkv6()
+    if args.only:
+        kernels = main_wkv6() if args.only == "wkv6" else main_train()
         log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {
@@ -952,6 +1451,7 @@ def main():
         return
     phase_build()
     phase_check()
+    phase_check_train()
     counts, served = phase_serve(ARCH)
     phase_trace_prefill(ARCH, served)
     phase_trace_decode(ARCH, served)
@@ -961,7 +1461,11 @@ def main():
     phase_trace_prefill(RWKV_ARCH, served)
     phase_trace_decode(RWKV_ARCH, served)
     del served          # frees the 6.2 GB of bf16 rwkv6-3b weights
-    kernels = phase_time(counts)
+    train_counts, seg = phase_train()
+    # the records' launches: each kernel's count summed over the paths
+    counts = {k: counts[k] + train_counts[k] for k in counts}
+    log(f"[done] launches over the serve runs and the training run: {counts}")
+    kernels = phase_time(counts, seg)
     log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

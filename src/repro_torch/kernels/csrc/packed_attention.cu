@@ -58,8 +58,12 @@
 // converted to float32 in shared memory, both products as float32 FMAs
 // (4x2 logits and 4xD/16 outputs per thread), BK 32, the same skip rule.
 //
-// Left for later: wgmma with TMA and warp specialisation, and a backward
-// kernel for training.
+// Both instantiations also write each row's log-sum-exp when the caller
+// passes an `lse` buffer (the autograd path); with a null pointer they do
+// exactly what the serve path did before.  The backward kernel is
+// csrc/packed_attention_bwd.cu.
+//
+// Left for later: wgmma with TMA and warp specialisation.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
@@ -67,6 +71,11 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+// the log-sum-exp of a row with no valid key (ref.LSE_EMPTY): +inf, so the
+// backward's exp(s - lse) is 0 there
+__device__ __forceinline__ float lse_empty() {
+  return __int_as_float(0x7f800000);
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -88,6 +97,7 @@ struct Params {
   const int* q_seg;
   const int* kv_seg;
   void* out;
+  float* lse;  // (b, h, sq) float32, or null: the serve path writes none
   int h, kh, sq, sk, d, causal;
   int vec;  // every pointer and row stride 16-byte aligned, d % 8 == 0
   long long q_sb, q_sh, q_ss;
@@ -330,6 +340,9 @@ packed_attention_kernel(const Params p) {
         if (col < p.d)
           orow[col] = from_f32<T>(keep ? acc[r][g * 4 + e] / denom : 0.f);
       }
+    if (p.lse != nullptr && tx == 0)  // m_i is in scaled logit units
+      p.lse[(static_cast<long long>(ib) * p.h + ih) * p.sq + qrow[r]] =
+          l_i[r] > 0.f ? m_i[r] + logf(l_i[r]) : lse_empty();
   }
 }
 
@@ -798,6 +811,11 @@ packed_attention_tc_kernel(const Params p) {
   }
   const float inv0 = qs0 > 0 ? 1.f / fmaxf(l0, 1e-20f) : 0.f;
   const float inv1 = qs1 > 0 ? 1.f / fmaxf(l1, 1e-20f) : 0.f;
+  if (p.lse != nullptr && tig == 0) {  // m0, m1 are in raw logit units
+    float* lg = p.lse + (static_cast<long long>(ib) * p.h + ih) * p.sq;
+    if (r0 < p.sq) lg[r0] = l0 > 0.f ? m0 * p.scale + logf(l0) : lse_empty();
+    if (r1 < p.sq) lg[r1] = l1 > 0.f ? m1 * p.scale + logf(l1) : lse_empty();
+  }
   bf16* stg = Qs + warp * 16 * LD;
 #pragma unroll
   for (int n = 0; n < DT; ++n) {
@@ -866,17 +884,21 @@ cudaError_t launch_tc_d(const Params& p, int b, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  vec: the
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  lse: null,
+// or a contiguous (b, h, sq) float32 buffer that receives each row's
+// log-sum-exp of its masked, scaled logits (+inf where the row has no valid
+// key), for the backward kernel.  vec: the
 // caller has checked that every pointer and row stride (in bytes) is a
 // multiple of 16 and d % 8 == 0 (the bfloat16 kernel then loads and stores
 // 16 bytes at a time).  Returns the launch's cudaError_t; 0 means it was
 // accepted.
 extern "C" int packed_attention_launch(
     const void* q, const void* k, const void* v, const void* q_seg,
-    const void* kv_seg, void* out, int b, int h, int kh, int sq, int sk,
-    int d, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+    const void* kv_seg, void* out, void* lse, int b, int h, int kh, int sq,
+    int sk, int d, long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+    long long o_ss,
     long long qseg_sb, long long kvseg_sb, float scale, int causal,
     int dtype, int vec, void* stream) {
   Params p;
@@ -886,6 +908,7 @@ extern "C" int packed_attention_launch(
   p.q_seg = static_cast<const int*>(q_seg);
   p.kv_seg = static_cast<const int*>(kv_seg);
   p.out = out;
+  p.lse = static_cast<float*>(lse);
   p.h = h;
   p.kh = kh;
   p.sq = sq;

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import _build
 
 launches = 0
@@ -118,6 +119,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     Returns (b, h, d) in q's dtype.
     """
     global launches
+    kernels.refuse_grad("flash_decode", (q, k_cache, v_cache))
     tensors = (q, k_cache, v_cache, cache_len)
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError("flash_decode kernel: all inputs must be on one CUDA "

@@ -3,6 +3,9 @@
 The port of ``repro.kernels.ops``.  The device of the inputs decides: CUDA
 tensors go to the hand-written kernels (which launch or raise; nothing falls
 back), CPU tensors go to ``kernels.ref`` because the caller put them there.
+Under autograd, bfloat16 ``packed_attention`` on the card runs the forward
+kernel (which then also writes each row's log-sum-exp) and the backward
+kernel; the other kernels have no backward and raise (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -10,8 +13,28 @@ import torch
 
 from repro_torch.kernels import flash_decode as _flash_decode
 from repro_torch.kernels import packed_attention as _packed_attention
+from repro_torch.kernels import packed_attention_bwd as _packed_attention_bwd
 from repro_torch.kernels import ref
 from repro_torch.kernels import wkv6 as _wkv6
+
+
+class _PackedAttention(torch.autograd.Function):
+    """The forward kernel with its log-sum-exp, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal):
+        out, lse = _packed_attention.packed_attention(
+            q, k, v, q_seg, kv_seg, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, q_seg, kv_seg)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_seg, kv_seg = ctx.saved_tensors
+        dq, dk, dv = _packed_attention_bwd.packed_attention_bwd(
+            q, k, v, out, lse, dout, q_seg, kv_seg, causal=ctx.causal)
+        return dq, dk, dv, None, None, None
 
 
 def packed_attention(q, k, v, q_seg, kv_seg, *, causal: bool = True
@@ -19,6 +42,10 @@ def packed_attention(q, k, v, q_seg, kv_seg, *, causal: bool = True
     """Layout: q (b, h, sq, d); k/v (b, kh, sk, d); segs (b, s)."""
     if q.device.type == "cpu":
         return ref.packed_attention_ref(q, k, v, q_seg, kv_seg, causal=causal)
+    if q.dtype == torch.bfloat16 and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return _PackedAttention.apply(q, k, v, q_seg, kv_seg, causal)
+    # forward only; under grad the float32 kernel raises (it has no backward)
     return _packed_attention.packed_attention(q, k, v, q_seg, kv_seg,
                                               causal=causal)
 

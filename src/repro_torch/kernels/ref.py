@@ -3,10 +3,14 @@
 The port of ``repro.kernels.ref``: the same arithmetic, upcast to float32,
 with the mask value -1e30 and the output in q's dtype.  ``kernels.ops``
 sends CPU tensors here; on the card they are the kernels' yardstick for
-correctness (not for speed).  Two plain versions of WKV6 sit here: the
-sequential oracle ``wkv6_ref`` and ``wkv6_chunked``, the port of the JAX
-model's chunked path (``repro.models.rwkv.wkv6_chunked``), which
-``models.rwkv`` re-exports under its JAX name.  A third, ``wkv6_two_pass``,
+correctness (not for speed).  Beside ``packed_attention_ref`` sit the
+plain versions of what the training path adds: ``packed_attention_lse_ref``
+(the forward kernel's log-sum-exp) and ``packed_attention_bwd_ref`` (the
+backward kernel), used by the tests and chip_smoke.py, by no model.  Two
+plain versions of WKV6 sit here: the sequential oracle ``wkv6_ref`` and
+``wkv6_chunked``, the port of the JAX model's chunked path
+(``repro.models.rwkv.wkv6_chunked``), which ``models.rwkv`` re-exports
+under its JAX name.  A third, ``wkv6_two_pass``,
 repeats the CUDA kernel's decomposition for the tests and chip_smoke.py;
 no model calls it.
 """
@@ -17,21 +21,32 @@ import torch
 NEG_INF = -1e30
 
 
-def packed_attention_ref(q, k, v, q_seg, kv_seg, *, causal: bool = True):
-    """q: (b, h, sq, d); k, v: (b, kh, sk, d); segs: (b, s)."""
-    b, h, sq, d = q.shape
-    kh, sk = k.shape[1], k.shape[2]
-    if kh != h:
-        k = k.repeat_interleave(h // kh, dim=1)
-        v = v.repeat_interleave(h // kh, dim=1)
-    scale = d ** -0.5
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+def _attention_mask(q_seg, kv_seg, sq: int, sk: int, causal: bool):
+    """(b, 1, sq, sk): q attends to k iff seg_q == seg_k != 0 and, when
+    causal, k <= q by buffer index."""
     mask = (q_seg[:, None, :, None] == kv_seg[:, None, None, :]) \
         & (kv_seg[:, None, None, :] > 0)
     if causal:
-        sq_i = torch.arange(sq, device=q.device)[:, None]
-        sk_i = torch.arange(sk, device=q.device)[None, :]
+        sq_i = torch.arange(sq, device=q_seg.device)[:, None]
+        sk_i = torch.arange(sk, device=q_seg.device)[None, :]
         mask = mask & (sq_i >= sk_i)[None, None]
+    return mask
+
+
+def _expand_kv(x, h: int):
+    """(b, kh, s, d) -> (b, h, s, d), each kv head repeated h / kh times."""
+    return x if x.shape[1] == h else x.repeat_interleave(h // x.shape[1],
+                                                        dim=1)
+
+
+def packed_attention_ref(q, k, v, q_seg, kv_seg, *, causal: bool = True):
+    """q: (b, h, sq, d); k, v: (b, kh, sk, d); segs: (b, s)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    k, v = _expand_kv(k, h), _expand_kv(v, h)
+    scale = d ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    mask = _attention_mask(q_seg, kv_seg, sq, sk, causal)
     logits = torch.where(mask, logits, NEG_INF)
     m = torch.amax(logits, -1, keepdim=True)
     p = torch.where(mask, torch.exp(logits - m), 0.0)
@@ -40,6 +55,51 @@ def packed_attention_ref(q, k, v, q_seg, kv_seg, *, causal: bool = True):
                        v.float())
     out = torch.where((q_seg > 0)[:, None, :, None], out, 0.0)
     return out.to(q.dtype)
+
+
+# The log-sum-exp of a row with no valid key (every padding row): exp(s -
+# LSE_EMPTY) is 0 for every finite logit s, so such a row gets no gradient.
+LSE_EMPTY = float("inf")
+
+
+def packed_attention_lse_ref(q, k, q_seg, kv_seg, *, causal: bool = True):
+    """The float32 (b, h, sq) log-sum-exp of each row's masked, scaled
+    logits, which the forward kernel writes for the backward; LSE_EMPTY
+    where a row has no valid key."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                          _expand_kv(k, h).float()) * d ** -0.5
+    mask = _attention_mask(q_seg, kv_seg, sq, sk, causal)
+    lse = torch.logsumexp(torch.where(mask, logits, NEG_INF), dim=-1)
+    return torch.where(mask.any(-1), lse, LSE_EMPTY)
+
+
+def packed_attention_bwd_ref(q, k, v, out, lse, dout, q_seg, kv_seg, *,
+                             causal: bool = True):
+    """dq, dk, dv of ``packed_attention_ref`` by the FlashAttention-2
+    formulas, from the forward's output and log-sum-exp:
+    D = rowsum(dout * out), P = exp(S scale - lse) on the mask,
+    dV = P^T dO, dS = P * (dO V^T - D), dQ = dS K scale, dK = dS^T Q scale,
+    dk and dv summed over each GQA group.  Arithmetic in float32; the
+    gradients come back in the inputs' dtypes."""
+    b, h, sq, d = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    qf, kf, vf = q.float(), _expand_kv(k, h).float(), _expand_kv(v, h).float()
+    do = dout.float()
+    mask = _attention_mask(q_seg, kv_seg, sq, sk, causal)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    delta = torch.sum(do * out.float(), -1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dk = dk.reshape(b, kh, h // kh, sk, d).sum(2)
+    dv = dv.reshape(b, kh, h // kh, sk, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_decode_ref(q, k_cache, v_cache, cache_len):

@@ -19,6 +19,7 @@ import functools
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import _build
 
 launches = 0
@@ -52,6 +53,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk; without it the wrapper allocates that scratch itself.
     """
     global launches
+    kernels.refuse_grad("wkv6", (r, k, v, loga, u))
     tensors = (r, k, v, loga, u, reset)
     if any(t.device.type != "cuda" or t.device != r.device for t in tensors):
         raise ValueError("wkv6 kernel: all inputs must be on one CUDA "

@@ -1,9 +1,11 @@
 """The model as an ``nn.Module``: the port of ``repro.models.model_zoo``.
 
-``Model`` holds the parameter tree as (non-trainable) parameters whose
-``state_dict`` keys are the JAX tree's key paths joined by ``.``
-(``embed.table``, ``layers.attn.wq``, ...), with the stacked ``layers``
-dim kept, so the weight bridge is one to one.  The dense family
+``Model`` holds the parameter tree as parameters whose ``state_dict`` keys
+are the JAX tree's key paths joined by ``.`` (``embed.table``,
+``layers.attn.wq``, ...), with the stacked ``layers`` dim kept, so the
+weight bridge is one to one.  They are built frozen (``requires_grad``
+off), as serving wants; ``train.train_step.init_train_state`` turns
+``requires_grad`` on with ``Model.requires_grad_``.  The dense family
 (``models.transformer``) and the ssm family, RWKV6 (``models.rwkv_model``),
 are ported; other families raise and point at ``ROADMAP.md``.
 """
@@ -54,8 +56,12 @@ class Model(ParamTree):
     def device(self) -> torch.device:
         return self.embed.table.device
 
-    def forward(self, batch):
-        return self._mod.forward(self.tree(), self.cfg, batch)
+    def forward(self, batch, params: dict | None = None):
+        """Packed batch -> (logits, aux loss), on ``params`` (a tree shaped
+        like ``self.tree()``, e.g. the train step's bf16 copy) or else on
+        the model's own leaves."""
+        return self._mod.forward(self.tree() if params is None else params,
+                                 self.cfg, batch)
 
     def prefill(self, batch):
         """Prompt -> (last-token logits, cache)."""

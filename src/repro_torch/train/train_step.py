@@ -1,15 +1,101 @@
-"""Serve-step factories: the serving half of ``repro.train.train_step``.
+"""Loss and train/serve step factories: the port of ``repro.train.train_step``.
 
-The training half (loss, AdamW, ``make_train_step``) belongs to the next
-slice of the port; see ROADMAP.md.
+Training keeps float32 master weights (the model's own leaves, trainable)
+and computes in bf16: the loss casts a bf16 copy of every float32 leaf of
+rank > 1 on each step, by a differentiable cast, so the gradients land
+float32 on the master leaves, as in the reference's ``loss_fn``.  Serving
+casts the leaves themselves, once and in place (``_cast_for_compute``),
+which a trainer must never do.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.models.model_zoo import Model
+from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.train.optimizer import (
+    AdamWConfig, AdamWState, adamw_update, init_adamw,
+)
 
 COMPUTE_DTYPE = torch.bfloat16
+AUX_LOSS_WEIGHT = 0.01
+
+
+class TrainState(NamedTuple):
+    params: dict      # the model's float32 leaves, requiring grad
+    opt: AdamWState
+
+
+def init_train_state(model: Model) -> TrainState:
+    """Make ``model``'s float32 leaves the trainable master weights and
+    start AdamW with zero moments."""
+    not_f32 = [n for n, p in model.named_parameters()
+               if p.dtype != torch.float32]
+    if not_f32:
+        raise ValueError(f"master weights must be float32; {not_f32} are not "
+                         "(a model cast for serving cannot train)")
+    model.requires_grad_(True)
+    params = model.tree()
+    return TrainState(params=params, opt=init_adamw(params))
+
+
+def _compute_copy(params: dict) -> dict:
+    """A bf16 copy of every float32 leaf of rank > 1, through autograd."""
+    return tree_map(lambda p: p.to(COMPUTE_DTYPE)
+                    if p.dtype == torch.float32 and p.dim() > 1 else p,
+                    params)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean masked token xent (fp32) + accuracy."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(labels, min=0).long()[
+        ..., None])[..., 0]
+    nll = (logz - gold) * mask
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    acc = torch.sum((torch.argmax(logits, -1) == labels) * mask) / denom
+    return torch.sum(nll) / denom, acc
+
+
+def make_loss_fn(model: Model):
+    """``loss_fn(params, batch) -> (total, metrics)`` on the bf16 copy of
+    ``params`` (the master tree); batch: (b, s) tensors ``tokens``,
+    ``segment_ids``, ``positions`` and ``labels`` (-1 where no loss)."""
+    def loss_fn(params, batch):
+        logits, aux = model.forward(batch, _compute_copy(params))
+        labels = batch["labels"]
+        mask = ((labels >= 0) & (batch["segment_ids"] > 0)).float()
+        loss, acc = cross_entropy(logits, labels, mask)
+        total = loss + AUX_LOSS_WEIGHT * aux
+        return total, {"loss": loss, "aux_loss": aux, "accuracy": acc,
+                       "tokens": torch.sum(mask)}
+    return loss_fn
+
+
+def make_train_step(model: Model, opt_cfg: AdamWConfig = AdamWConfig()):
+    """``train_step(state, batch) -> (state, metrics)``: forward, backward,
+    AdamW.  The master weights and moments are updated in place; the
+    gradients are dropped after the update.  Metrics stay on the device."""
+    loss_fn = make_loss_fn(model)
+
+    def train_step(state: TrainState, batch):
+        total, metrics = loss_fn(state.params, batch)
+        total.backward()
+        grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
+                         else p.grad, state.params)
+        params, opt, opt_metrics = adamw_update(opt_cfg, grads, state.opt,
+                                                state.params)
+        for _, p in tree_leaves(params):
+            p.grad = None
+        metrics = dict(metrics, total_loss=total, **opt_metrics)
+        return TrainState(params, opt), {k: v.detach()
+                                         for k, v in metrics.items()}
+
+    return train_step
 
 
 def _cast_for_compute(model: Model) -> Model:

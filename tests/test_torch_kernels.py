@@ -19,7 +19,7 @@ from repro.kernels.wkv6 import wkv6_forward
 from repro.models import rwkv as jrwkv
 
 from repro_torch.kernels import flash_decode, ops, packed_attention
-from repro_torch.kernels import ref, wkv6
+from repro_torch.kernels import packed_attention_bwd, ref, wkv6
 from repro_torch.models import rwkv
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -119,6 +119,160 @@ def test_packed_attention_ref_blocks_cross_segment_leakage():
     torch.testing.assert_close(out1[:, :, :64], out2[:, :, :64], atol=1e-6,
                                rtol=0)
     assert not torch.allclose(out1[:, :, 64:], out2[:, :, 64:])
+
+
+# (b, h, kh, sq, sk, d, causal): MHA, GQA and MQA; ragged tails (no length
+# a multiple of 64) with segments that start mid-tile; non-causal sq != sk.
+BWD_SHAPES = [
+    (2, 4, 4, 100, 100, 16, True),
+    (2, 4, 2, 100, 100, 64, True),
+    (1, 8, 1, 70, 70, 128, True),
+    (2, 4, 2, 48, 80, 64, False),
+    (2, 2, 1, 90, 90, 16, False),
+]
+
+
+def _bwd_case(b, h, kh, sq, sk, d, causal):
+    """float32 inputs that require grad, packed segment ids, and an
+    all-padding row (batch row 0, rows 20-29) besides trailing padding."""
+    rng = np.random.default_rng([b, h, kh, sq, sk, d, int(causal)])
+    q, k, v = (torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            requires_grad=True)
+               for shape in ((b, h, sq, d), (b, kh, sk, d), (b, kh, sk, d)))
+    q_seg = _segs(rng, b, sq)
+    q_seg[0, 20:30] = 0
+    kv_seg = q_seg if sq == sk else _segs(rng, b, sk)
+    return q, k, v, torch.from_numpy(q_seg), torch.from_numpy(kv_seg)
+
+
+@pytest.mark.parametrize("b,h,kh,sq,sk,d,causal", BWD_SHAPES)
+def test_packed_attention_bwd_ref_matches_autograd(b, h, kh, sq, sk, d,
+                                                   causal):
+    """The backward kernel's plain version (FlashAttention-2 formulas from
+    out and lse) against autograd of ``ref.packed_attention_ref``, float32
+    at the kernels' TOL."""
+    q, k, v, q_seg, kv_seg = _bwd_case(b, h, kh, sq, sk, d, causal)
+    out = ref.packed_attention_ref(q, k, v, q_seg, kv_seg, causal=causal)
+    dout = torch.tensor(np.random.default_rng(9).normal(size=out.shape),
+                        dtype=torch.float32)
+    out.backward(dout)
+    lse = ref.packed_attention_lse_ref(q.detach(), k.detach(), q_seg, kv_seg,
+                                       causal=causal)
+    got = ref.packed_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       out.detach(), lse, dout, q_seg, kv_seg,
+                                       causal=causal)
+    for name, g, t in zip("qkv", got, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == torch.float32, name
+        torch.testing.assert_close(g, t.grad, atol=TOL["float32"],
+                                   rtol=TOL["float32"], msg=name)
+    assert not got[0][0, :, 20:30].any()   # padding rows: no gradient
+
+
+@pytest.mark.parametrize("b,h,kh,sq,sk,d,causal", BWD_SHAPES)
+def test_packed_attention_lse_ref_is_the_softmax_normaliser(b, h, kh, sq, sk,
+                                                            d, causal):
+    """exp(S scale - lse) is the forward's softmax: its rows sum to 1, and
+    times V it gives ``packed_attention_ref``'s output; a row with no valid
+    key gets ``LSE_EMPTY``."""
+    q, k, v, q_seg, kv_seg = (t.detach() if t.is_floating_point() else t
+                              for t in _bwd_case(b, h, kh, sq, sk, d, causal))
+    lse = ref.packed_attention_lse_ref(q, k, q_seg, kv_seg, causal=causal)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    ke = k.repeat_interleave(h // kh, dim=1)
+    ve = v.repeat_interleave(h // kh, dim=1)
+    valid = ref._attention_mask(q_seg, kv_seg, sq, sk, causal)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, ke) * d ** -0.5
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    has_key = valid.any(-1).expand(b, h, sq)
+    torch.testing.assert_close(p.sum(-1)[has_key],
+                               torch.ones(int(has_key.sum())),
+                               atol=TOL["float32"], rtol=0)
+    assert (lse[~has_key] == ref.LSE_EMPTY).all() and (~has_key).any()
+    torch.testing.assert_close(
+        torch.einsum("bhqk,bhkd->bhqd", p, ve),
+        ref.packed_attention_ref(q, k, v, q_seg, kv_seg, causal=causal),
+        atol=TOL["float32"], rtol=TOL["float32"])
+
+
+def test_ops_packed_attention_on_cpu_carries_grads():
+    """On CPU tensors under grad, ``ops.packed_attention`` is the
+    differentiable plain version: q, k and v all get gradients."""
+    q, k, v, q_seg, kv_seg = _bwd_case(2, 4, 2, 100, 100, 16, True)
+    ops.packed_attention(q, k, v, q_seg, kv_seg).square().sum().backward()
+    assert all(t.grad is not None and t.grad.abs().max() > 0
+               for t in (q, k, v))
+
+
+def test_autograd_path_wires_forward_lse_and_backward(monkeypatch):
+    """``ops``' autograd path for bf16 on the card: the forward wrapper is
+    asked for the log-sum-exp, the backward wrapper gets what the forward
+    saved and dout, and the gradients reach q, k and v.  The kernels run
+    only on the card, so here the wrappers are their plain versions."""
+    calls = []
+
+    def forward(q, k, v, q_seg, kv_seg, *, causal, return_lse=False):
+        calls.append(("forward", return_lse))
+        return (ref.packed_attention_ref(q, k, v, q_seg, kv_seg,
+                                         causal=causal),
+                ref.packed_attention_lse_ref(q, k, q_seg, kv_seg,
+                                             causal=causal))
+
+    def backward(*args, causal):
+        calls.append(("backward", causal))
+        return ref.packed_attention_bwd_ref(*args, causal=causal)
+
+    monkeypatch.setattr(packed_attention, "packed_attention", forward)
+    monkeypatch.setattr(packed_attention_bwd, "packed_attention_bwd",
+                        backward)
+    q, k, v, q_seg, kv_seg = _bwd_case(2, 4, 2, 48, 80, 64, False)
+    q, k, v = (t.detach().to(torch.bfloat16).requires_grad_()
+               for t in (q, k, v))
+    out = ops._PackedAttention.apply(q, k, v, q_seg, kv_seg, False)
+    out.float().square().sum().backward()
+    assert calls == [("forward", True), ("backward", False)]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref.packed_attention_ref(*leaves, q_seg, kv_seg, causal=False
+                             ).float().square().sum().backward()
+    for name, t, e in zip("qkv", (q, k, v), leaves):
+        assert t.grad.dtype == torch.bfloat16, name
+        _close(t.grad, e.grad.float().numpy(), "bfloat16")
+
+
+def test_kernels_without_a_backward_refuse_grad():
+    """No silent stop of the gradient: under grad, a kernel with no
+    backward raises and names ROADMAP.md before it looks at its inputs
+    (float32 ``packed_attention``, ``flash_decode``, ``wkv6``); under
+    ``no_grad`` the same call reaches the usual checks."""
+    x = torch.zeros((1, 2, 8, 16), requires_grad=True)
+    seg = torch.ones((1, 8), dtype=torch.int32)
+    reset = torch.ones((1, 8), dtype=torch.bool)
+    calls = [
+        lambda: packed_attention.packed_attention(x, x, x, seg, seg),
+        lambda: flash_decode.flash_decode(x[:, :, 0], x, x,
+                                          torch.ones((1,), dtype=torch.int32)),
+        lambda: wkv6.wkv6(x, x, x, x, torch.zeros((8, 16)), reset, chunk=16),
+    ]
+    before = (packed_attention.launches, flash_decode.launches,
+              wkv6.launches)
+    for call in calls:
+        with pytest.raises(RuntimeError, match="ROADMAP.md"):
+            call()
+        with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert (packed_attention.launches, flash_decode.launches,
+            wkv6.launches) == before
+
+
+def test_packed_attention_bwd_wrapper_refuses_cpu_tensors():
+    """No fallback: the backward wrapper launches on CUDA tensors or
+    raises (its dtype and head_dim checks run on the card)."""
+    t = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)
+    seg = torch.ones((1, 8), dtype=torch.int32)
+    before = packed_attention_bwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        packed_attention_bwd.packed_attention_bwd(
+            t, t, t, t, torch.zeros((1, 2, 8)), t, seg, seg)
+    assert packed_attention_bwd.launches == before
 
 
 @pytest.mark.parametrize("b,h,kh,S,d,blk", [
