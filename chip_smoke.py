@@ -51,9 +51,12 @@ Phases (any failure raises, and the exit code is not 0):
                CUDA-graph replay, and around eager calls), beside its plain
                version, one PyTorch library call where there is one, and
                its bound; the backward kernel at the training shape.
-The line before the last is a JSON ``kernels`` record (each kernel's
-``launches`` summed over the serve runs and the training run); the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON ``kernels`` record: each kernel's
+``launches`` is its count on the path the record is timed on
+(``launches_path``: packed_attention and flash_decode on the qwen3-8b
+serve run, wkv6 on the rwkv6-3b one, packed_attention_bwd on the training
+run, 5 steps), and ``launches_by_path`` its count on every path, each read
+from its own zeroed run; the last line is ``{"ok": true, "device": {...}}``.
 
 ``--only wkv6`` is the short loop for the wkv6 kernel: phase 1, the wkv6
 build, its phase-3 checks (``_check_wkv6``, ``_check_reduced_rwkv``) and
@@ -100,6 +103,13 @@ RWKV_ARCH = "rwkv6-3b"             # served at the same batch, prompt, gen
 # one card; 8 take ~45 GB, ~50 GB with the bf16 copy)
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4, 1024, 5
 TRAIN_PARAMS = 2_788_235_264
+# the training rows' documents: the text-token log-normal (mu, sigma) of
+# each source of coyo_like_specs(4), the group the JAX package's training
+# launcher reads by default (src/repro/launch/train.py:58), as
+# src/repro/data/sources.py:43-53 draws them from default_rng(0); the
+# lengths carry Fig. 2's skew (most documents short, a long tail)
+COYO_TEXT = ((3.0821770123928727, 1.2), (2.7099165813171173, 1.2),
+             (3.0639814654603077, 1.2), (3.2610434542726607, 1.2))
 
 
 def log(msg: str):
@@ -617,18 +627,27 @@ def _check_reduced_rwkv():
 
 
 # ------------------------------------------------------ 3. train checks
-def _train_segs(rng, b, s):
-    """Packed training rows: segments of 32-256 tokens drawn from ``rng``
-    until the next would not fit; the rest of the row is padding (0)."""
+def _data_plane_segs(rng, b, s):
+    """Packed training rows as the data plane makes them: each document
+    from one of ``COYO_TEXT``'s sources, chosen uniformly (the launcher's
+    equal-weight schedule), with its text length drawn as
+    src/repro/data/sources.py:73-75 draws it and cut to ``s``
+    (src/repro/data/packing.py:56); documents are drawn until they hold as
+    many tokens as the rows, then packed first-fit in draw order, and a
+    document that fits no row is dropped (packing.py:39-69).  Segment ids
+    count from 1 in each row; the rest of a row is padding (0)."""
     seg = np.zeros((b, s), np.int32)
-    for i in range(b):
-        pos, sid = 0, 1
-        while True:
-            ln = int(rng.integers(32, 257))
-            if pos + ln > s:
-                break
-            seg[i, pos:pos + ln] = sid
-            pos, sid = pos + ln, sid + 1
+    fill, count, drawn = [0] * b, [0] * b, 0
+    while drawn < b * s:
+        mu, sigma = COYO_TEXT[rng.integers(len(COYO_TEXT))]
+        n = min(int(np.clip(rng.lognormal(mu, sigma), 1, 8192)), s)
+        drawn += n
+        row = next((r for r in range(b) if fill[r] + n <= s), None)
+        if row is None:
+            continue
+        count[row] += 1
+        seg[row, fill[row]:fill[row] + n] = count[row]
+        fill[row] += n
     return seg
 
 
@@ -789,8 +808,8 @@ def _check_full_width_grads():
     model = build_model(cfg, torch.Generator(device="cuda").manual_seed(5))
     state = init_train_state(model)
     rng = np.random.default_rng(5)
-    batch = _lm_batch(rng, cfg.vocab_size, _train_segs(rng, 2, TRAIN_SEQ),
-                      next_token=True)
+    batch = _lm_batch(rng, cfg.vocab_size,
+                      _data_plane_segs(rng, 2, TRAIN_SEQ), next_token=True)
     loss_fn = make_loss_fn(model)
 
     def run():
@@ -1155,15 +1174,36 @@ def _time_wkv6(cfg, launches) -> dict:
                    no_library="no single PyTorch call computes WKV6")
 
 
-def phase_time(counts: dict, train_seg: np.ndarray) -> list:
+# the path each record is timed on; its ``launches`` is that path's count
+RECORD_PATH = {"packed_attention": f"serve:{ARCH}",
+               "flash_decode": f"serve:{ARCH}",
+               "wkv6": f"serve:{RWKV_ARCH}",
+               "packed_attention_bwd": f"train:{ARCH}"}
+
+
+def _with_paths(rec: dict, paths: dict) -> dict:
+    """``launches``: the count on the record's own path (``launches_path``;
+    null where that path did not run); ``launches_by_path``: the kernel's
+    count on every path that ran, each from its own zeroed run."""
+    own = RECORD_PATH[rec["name"]]
+    rec["launches"] = paths[own][rec["name"]] if own in paths else None
+    rec["launches_path"] = own
+    rec["launches_by_path"] = {path: counts[rec["name"]]
+                               for path, counts in paths.items()}
+    return rec
+
+
+def phase_time(paths: dict, train_seg: np.ndarray) -> list:
     from repro_torch.configs import get_config
     qwen, rwkv = get_config(ARCH), get_config(RWKV_ARCH)
     torch.cuda.empty_cache()
-    return [_time_packed_attention(qwen, counts["packed_attention"]),
-            _time_flash_decode(qwen, counts["flash_decode"]),
-            _time_wkv6(rwkv, counts["wkv6"]),
-            _time_packed_attention_bwd(qwen, counts["packed_attention_bwd"],
-                                       train_seg)]
+    return [_with_paths(r, paths) for r in (
+        _time_packed_attention(qwen, paths[f"serve:{ARCH}"][
+            "packed_attention"]),
+        _time_flash_decode(qwen, paths[f"serve:{ARCH}"]["flash_decode"]),
+        _time_wkv6(rwkv, paths[f"serve:{RWKV_ARCH}"]["wkv6"]),
+        _time_packed_attention_bwd(qwen, paths[f"train:{ARCH}"][
+            "packed_attention_bwd"], train_seg))]
 
 
 # ------------------------------------------------------------- 6. train
@@ -1174,11 +1214,12 @@ def _events():
 def phase_train() -> tuple[dict, np.ndarray]:
     """qwen3-8b at full width with TRAIN_LAYERS of its 36 layers, AdamW on
     float32 master weights, TRAIN_STEPS steps through ``train_step`` on one
-    packed batch of TRAIN_BATCH x TRAIN_SEQ (seeded ragged segments,
-    next-token labels, -1 on padding and on each segment's last token),
-    every kernel's count set to 0 just before the steps and
-    read just after; then one more step by its parts (forward, backward,
-    update) between CUDA events, and one step under the profiler."""
+    packed batch of TRAIN_BATCH x TRAIN_SEQ (the data plane's documents,
+    ``_data_plane_segs``; next-token labels, -1 on padding and on each
+    segment's last token), every kernel's count set to 0 just before the
+    steps and read just after; then one more step by its parts (forward,
+    backward, update) between CUDA events, and one step under the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import build_model
@@ -1197,14 +1238,20 @@ def phase_train() -> tuple[dict, np.ndarray]:
     opt_cfg = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=1000)
     step = make_train_step(model, opt_cfg)
     rng = np.random.default_rng(11)
-    seg = _train_segs(rng, TRAIN_BATCH, TRAIN_SEQ)
+    seg = _data_plane_segs(rng, TRAIN_BATCH, TRAIN_SEQ)
     batch = _lm_batch(rng, cfg.vocab_size, seg, next_token=True)
     lengths = [np.bincount(r[r > 0]).tolist()[1:] for r in seg]
+    flat = np.concatenate(lengths)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     log(f"[train] {ARCH} layers={cfg.num_layers} of 36 d_model={cfg.d_model} "
         f"params={n_params} batch={TRAIN_BATCH}x{TRAIN_SEQ} "
         f"loss tokens={int((batch['labels'] >= 0).sum())} segment lengths "
         f"{lengths}")
+    log(f"[train] documents={flat.size} tokens={int(flat.sum())} of {tokens} "
+        f"median={np.median(flat):g} p98={np.percentile(flat, 98):g} "
+        f"max={flat.max()} share<=64={np.mean(flat <= 64):.4f} "
+        f"causal pairs per head={int((flat * (flat + 1) // 2).sum())} "
+        f"of {TRAIN_BATCH * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2}")
 
     torch.cuda.synchronize()
     _zero_launch_counts()
@@ -1415,7 +1462,7 @@ def main_wkv6():
     torch.backends.cudnn.allow_tf32 = False
     _check_wkv6()
     _check_reduced_rwkv()
-    return [_time_wkv6(get_config(RWKV_ARCH), None)]
+    return [_with_paths(_time_wkv6(get_config(RWKV_ARCH), None), {})]
 
 
 def main_train():
@@ -1427,8 +1474,9 @@ def main_train():
     torch.backends.cudnn.allow_tf32 = False
     phase_check_train()
     counts, seg = phase_train()
-    return [_time_packed_attention_bwd(get_config(ARCH),
-                                       counts["packed_attention_bwd"], seg)]
+    return [_with_paths(_time_packed_attention_bwd(
+        get_config(ARCH), counts["packed_attention_bwd"], seg),
+        {f"train:{ARCH}": counts})]
 
 
 def main():
@@ -1452,20 +1500,18 @@ def main():
     phase_build()
     phase_check()
     phase_check_train()
-    counts, served = phase_serve(ARCH)
+    paths = {}          # each path's launch counts, from its own zeroed run
+    paths[f"serve:{ARCH}"], served = phase_serve(ARCH)
     phase_trace_prefill(ARCH, served)
     phase_trace_decode(ARCH, served)
     del served          # frees the 16.4 GB of bf16 qwen3-8b weights
-    rwkv_counts, served = phase_serve(RWKV_ARCH)
-    counts["wkv6"] = rwkv_counts["wkv6"]
+    paths[f"serve:{RWKV_ARCH}"], served = phase_serve(RWKV_ARCH)
     phase_trace_prefill(RWKV_ARCH, served)
     phase_trace_decode(RWKV_ARCH, served)
     del served          # frees the 6.2 GB of bf16 rwkv6-3b weights
-    train_counts, seg = phase_train()
-    # the records' launches: each kernel's count summed over the paths
-    counts = {k: counts[k] + train_counts[k] for k in counts}
-    log(f"[done] launches over the serve runs and the training run: {counts}")
-    kernels = phase_time(counts, seg)
+    paths[f"train:{ARCH}"], seg = phase_train()
+    log(f"[done] launches by path: {paths}")
+    kernels = phase_time(paths, seg)
     log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -58,10 +58,11 @@
 // converted to float32 in shared memory, both products as float32 FMAs
 // (4x2 logits and 4xD/16 outputs per thread), BK 32, the same skip rule.
 //
-// Both instantiations also write each row's log-sum-exp when the caller
-// passes an `lse` buffer (the autograd path); with a null pointer they do
-// exactly what the serve path did before.  The backward kernel is
-// csrc/packed_attention_bwd.cu.
+// The bfloat16 kernel also writes each row's log-sum-exp when the caller
+// passes an `lse` buffer (the autograd path).  That write is a template
+// flag, so the instantiation the serve path runs (a null `lse`) is the
+// kernel it ran before; the float32 kernel writes none, as it has no
+// backward.  The backward kernel is csrc/packed_attention_bwd.cu.
 //
 // Left for later: wgmma with TMA and warp specialisation.
 #include <cuda_bf16.h>
@@ -97,7 +98,6 @@ struct Params {
   const int* q_seg;
   const int* kv_seg;
   void* out;
-  float* lse;  // (b, h, sq) float32, or null: the serve path writes none
   int h, kh, sq, sk, d, causal;
   int vec;  // every pointer and row stride 16-byte aligned, d % 8 == 0
   long long q_sb, q_sh, q_ss;
@@ -340,9 +340,6 @@ packed_attention_kernel(const Params p) {
         if (col < p.d)
           orow[col] = from_f32<T>(keep ? acc[r][g * 4 + e] / denom : 0.f);
       }
-    if (p.lse != nullptr && tx == 0)  // m_i is in scaled logit units
-      p.lse[(static_cast<long long>(ib) * p.h + ih) * p.sq + qrow[r]] =
-          l_i[r] > 0.f ? m_i[r] + logf(l_i[r]) : lse_empty();
   }
 }
 
@@ -489,9 +486,11 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
   }
 }
 
-template <int D>
+// LSE: write each row's log-sum-exp to `lse` (b, h, sq); else `lse` is
+// unused and the kernel is the serve path's.
+template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, MIN_CTAS)
-packed_attention_tc_kernel(const Params p) {
+packed_attention_tc_kernel(const Params p, float* __restrict__ lse) {
   constexpr int LD = D + 8;   // padded row: 8 ldmatrix rows hit 8 distinct
                               // 16-byte bank groups for every D here
   constexpr int KS = D / 16;  // k-steps of Q K^T; n-tile pairs of P V
@@ -811,8 +810,8 @@ packed_attention_tc_kernel(const Params p) {
   }
   const float inv0 = qs0 > 0 ? 1.f / fmaxf(l0, 1e-20f) : 0.f;
   const float inv1 = qs1 > 0 ? 1.f / fmaxf(l1, 1e-20f) : 0.f;
-  if (p.lse != nullptr && tig == 0) {  // m0, m1 are in raw logit units
-    float* lg = p.lse + (static_cast<long long>(ib) * p.h + ih) * p.sq;
+  if (LSE && tig == 0) {  // m0, m1 are in raw logit units
+    float* lg = lse + (static_cast<long long>(ib) * p.h + ih) * p.sq;
     if (r0 < p.sq) lg[r0] = l0 > 0.f ? m0 * p.scale + logf(l0) : lse_empty();
     if (r1 < p.sq) lg[r1] = l1 > 0.f ? m1 * p.scale + logf(l1) : lse_empty();
   }
@@ -862,32 +861,36 @@ cudaError_t launch_fp32_d(const Params& p, int b, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-template <int D>
-cudaError_t launch_tc(const Params& p, int b, cudaStream_t stream) {
+template <int D, bool LSE>
+cudaError_t launch_tc(const Params& p, float* lse, int b,
+                      cudaStream_t stream) {
   constexpr int smem = tc::smem_bytes<D>();
   const cudaError_t attr = cudaFuncSetAttribute(
-      tc::packed_attention_tc_kernel<D>,
+      tc::packed_attention_tc_kernel<D, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(p.h, b, (p.sq + tc::BQ - 1) / tc::BQ);
-  tc::packed_attention_tc_kernel<D><<<grid, tc::THREADS, smem, stream>>>(p);
+  tc::packed_attention_tc_kernel<D, LSE>
+      <<<grid, tc::THREADS, smem, stream>>>(p, lse);
   return cudaGetLastError();
 }
 
-cudaError_t launch_tc_d(const Params& p, int b, cudaStream_t stream) {
-  if (p.d <= 32) return launch_tc<32>(p, b, stream);
-  if (p.d <= 64) return launch_tc<64>(p, b, stream);
-  if (p.d <= 80) return launch_tc<80>(p, b, stream);
-  if (p.d <= 128) return launch_tc<128>(p, b, stream);
+template <bool LSE>
+cudaError_t launch_tc_d(const Params& p, float* lse, int b,
+                        cudaStream_t stream) {
+  if (p.d <= 32) return launch_tc<32, LSE>(p, lse, b, stream);
+  if (p.d <= 64) return launch_tc<64, LSE>(p, lse, b, stream);
+  if (p.d <= 80) return launch_tc<80, LSE>(p, lse, b, stream);
+  if (p.d <= 128) return launch_tc<128, LSE>(p, lse, b, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  lse: null,
-// or a contiguous (b, h, sq) float32 buffer that receives each row's
-// log-sum-exp of its masked, scaled logits (+inf where the row has no valid
-// key), for the backward kernel.  vec: the
+// or (bfloat16 only) a contiguous (b, h, sq) float32 buffer that receives
+// each row's log-sum-exp of its masked, scaled logits (+inf where the row
+// has no valid key), for the backward kernel.  vec: the
 // caller has checked that every pointer and row stride (in bytes) is a
 // multiple of 16 and d % 8 == 0 (the bfloat16 kernel then loads and stores
 // 16 bytes at a time).  Returns the launch's cudaError_t; 0 means it was
@@ -908,7 +911,6 @@ extern "C" int packed_attention_launch(
   p.q_seg = static_cast<const int*>(q_seg);
   p.kv_seg = static_cast<const int*>(kv_seg);
   p.out = out;
-  p.lse = static_cast<float*>(lse);
   p.h = h;
   p.kh = kh;
   p.sq = sq;
@@ -923,11 +925,14 @@ extern "C" int packed_attention_launch(
   p.qseg_sb = qseg_sb;
   p.kvseg_sb = kvseg_sb;
   p.scale = scale;
-  if (b <= 0 || sq <= 0 || sk <= 0 || h % kh != 0)
+  if (b <= 0 || sq <= 0 || sk <= 0 || h % kh != 0 ||
+      (lse != nullptr && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0 ? launch_fp32_d(p, b, s)
-                  : dtype == 1 ? launch_tc_d(p, b, s)
-                               : cudaErrorInvalidValue;
+  float* lg = static_cast<float*>(lse);
+  cudaError_t err = dtype == 0   ? launch_fp32_d(p, b, s)
+                  : dtype != 1   ? cudaErrorInvalidValue
+                  : lg != nullptr ? launch_tc_d<true>(p, lg, b, s)
+                                  : launch_tc_d<false>(p, nullptr, b, s);
   return static_cast<int>(err);
 }

@@ -19,10 +19,10 @@
 // multiple of 16 bytes (the wrapper checks).
 //
 // What bounds it on the H100: at the training shape (b 4, s 1024, 32 heads,
-// 8 kv heads, d 128, ragged segments of 32-256 tokens) it moves ~170 MB
-// (q, k, v, O, dO, lse, dq, dk, dv once: ~0.05 ms at 3.35 TB/s) and does
-// 10 d FLOP per valid (q, k) pair, ~7 GFLOP (~0.007 ms at 989 TFLOP/s), so
-// its floor is bytes.  The design is three launches with no atomics, so the
+// 8 kv heads, d 128, documents of the data plane's coyo text lengths,
+// median ~20 tokens) it moves ~170 MB (q, k, v, O, dO, lse, dq, dk, dv
+// once: ~0.05 ms at 3.35 TB/s) and does 10 d FLOP per valid (q, k) pair,
+// ~8 GFLOP (~0.008 ms at 989 TFLOP/s), so its floor is bytes.  The design is three launches with no atomics, so the
 // gradients are bitwise deterministic:
 //   (a) `delta_kernel`: D = rowsum(dO * O) in float32, one warp per row.
 //   (b) `dkdv_kernel`: one CTA of 4 warps per (kv head, batch row, 64-key

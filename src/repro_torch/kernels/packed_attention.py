@@ -61,13 +61,17 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Any strides with a unit last stride (e.g. ``x.transpose(1, 2)`` views of
     (b, s, h, d) activations).  float32 or bfloat16, d <= 128.  Returns
     (b, h, sq, d) in q's dtype, laid out in memory like q; with
-    ``return_lse`` also the (b, h, sq) float32 log-sum-exp of each row's
-    masked, scaled logits (``ref.LSE_EMPTY`` where a row has no valid key).
+    ``return_lse`` (bfloat16 only: float32 has no backward to read it) also
+    the (b, h, sq) float32 log-sum-exp of each row's masked, scaled logits
+    (``ref.LSE_EMPTY`` where a row has no valid key).
     """
     global launches
     kernels.refuse_grad("packed_attention", (q, k, v),
                 " here (bfloat16 trains through kernels.ops.packed_attention "
                 "and the backward kernel; float32 has none)")
+    if return_lse and q.dtype != torch.bfloat16:
+        raise ValueError("packed_attention kernel: return_lse takes bfloat16 "
+                         f"inputs only; got {q.dtype}")
     tensors = (q, k, v, q_seg, kv_seg)
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError("packed_attention kernel: all inputs must be on one "

@@ -263,6 +263,18 @@ def test_kernels_without_a_backward_refuse_grad():
             wkv6.launches) == before
 
 
+def test_packed_attention_lse_is_bfloat16_only():
+    """Only the bfloat16 forward writes the log-sum-exp (the backward is
+    bfloat16 only); a float32 call that asks for it raises before it
+    launches."""
+    x = torch.zeros((1, 2, 8, 16))
+    seg = torch.ones((1, 8), dtype=torch.int32)
+    before = packed_attention.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        packed_attention.packed_attention(x, x, x, seg, seg, return_lse=True)
+    assert packed_attention.launches == before
+
+
 def test_packed_attention_bwd_wrapper_refuses_cpu_tensors():
     """No fallback: the backward wrapper launches on CUDA tensors or
     raises (its dtype and head_dim checks run on the card)."""
