@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only wkv6
     python3 chip_smoke.py --only train
+    python3 chip_smoke.py --only bwd
 
 Phases (any failure raises, and the exit code is not 0):
   1. device  — the card's name, count and power limit; no card, no run.
@@ -24,9 +25,11 @@ Phases (any failure raises, and the exit code is not 0):
                forward's log-sum-exp and the backward kernel
                (packed_attention_bwd, bf16, d 16/64/128; MHA, GQA, MQA,
                causal and sq != sk, ragged tails, short segments, padding
-               tiles and rows) against ``packed_attention_bwd_ref`` and
-               autograd of ``packed_attention_ref``, two calls bitwise
-               equal; the kernels with no backward raising under grad;
+               tiles and rows, an expanded dO) against
+               ``packed_attention_bwd_ref`` and autograd of
+               ``packed_attention_ref``, two calls bitwise equal, and the
+               live tiles each CTA reports against
+               ``ref.packed_attention_live_tiles``; the kernels with no backward raising under grad;
                qwen3-8b at full width with 2 layers, loss and every
                gradient, kernels against plain attention; reduced qwen3-8b
                memorising one batch through the kernels.
@@ -64,6 +67,12 @@ its timing, with no serve run (so its record's ``launches`` is null).
 ``--only train`` is the short loop for training: phase 1, the builds of
 packed_attention and packed_attention_bwd, the training checks, phase 6
 and the backward kernel's record.
+``--only bwd`` is the short loop for the backward kernel: phase 1, the
+builds of packed_attention and packed_attention_bwd, the backward checks,
+and the backward's record at the training shape with the live tile pairs
+the kernel reports (``launches`` null: no training run).
+``tools/time_in_turns.py bwd`` times it in turns against another version
+of its source.
 """
 from __future__ import annotations
 
@@ -103,6 +112,7 @@ RWKV_ARCH = "rwkv6-3b"             # served at the same batch, prompt, gen
 # one card; 8 take ~45 GB, ~50 GB with the bf16 copy)
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4, 1024, 5
 TRAIN_PARAMS = 2_788_235_264
+TRAIN_SEED = 11                    # the training batch's documents and tokens
 # the training rows' documents: the text-token log-normal (mu, sigma) of
 # each source of coyo_like_specs(4), the group the JAX package's training
 # launcher reads by default (src/repro/launch/train.py:58), as
@@ -682,18 +692,38 @@ def _check_lse(name, got, exp, tol) -> float:
     return _check(name, got[~inf], exp[~inf], tol)
 
 
-def _check_pa_bwd(rng, b, h, kh, sq, sk, d, causal, q_seg, kv_seg, what=""):
+def _kernel_live_pairs(live_q, live_kv, q_seg, kv_seg, causal, tag) -> int:
+    """The live tiles each CTA of the backward kernel reported
+    (``return_live``) against ``ref.packed_attention_live_tiles``: a dQ
+    CTA's count of key tiles, for every q head, and a dK/dV CTA's count of
+    q tiles must be the mirror's.  Returns the tile pairs a launch
+    computes over every q head, as the kernel counted them."""
+    from repro_torch.kernels import ref
+    mirror = ref.packed_attention_live_tiles(q_seg, kv_seg, causal=causal)
+    per_q, per_kv = mirror.sum(2, dtype=torch.int32), mirror.sum(
+        1, dtype=torch.int32)
+    if not (torch.equal(live_q, per_q[:, None].expand_as(live_q))
+            and torch.equal(live_kv, per_kv[:, None].expand_as(live_kv))):
+        raise AssertionError(f"{tag}: the live tiles the kernel found differ "
+                             "from ref.packed_attention_live_tiles")
+    return int(live_q.sum())
+
+
+def _check_pa_bwd(rng, b, h, kh, sq, sk, d, causal, q_seg, kv_seg, what="",
+                  dout=None):
     """The backward kernel against both plain versions, bf16: the forward's
     lse against ``packed_attention_lse_ref``, then dq, dk, dv against
     ``packed_attention_bwd_ref`` (on the kernel's own out and lse) and
     against autograd of ``packed_attention_ref``; two calls on the same
-    inputs must agree bit for bit."""
+    inputs must agree bit for bit, and the live tiles the kernel reports
+    must be the mirror's.  ``dout``: drawn like q unless given."""
     from repro_torch.kernels import packed_attention, packed_attention_bwd
     from repro_torch.kernels import ref
     bf = torch.bfloat16
     q, k, v = (_bshd(rng, b, sq, h, d, bf), _bshd(rng, b, sk, kh, d, bf),
                _bshd(rng, b, sk, kh, d, bf))
-    dout = _bshd(rng, b, sq, h, d, bf)
+    if dout is None:
+        dout = _bshd(rng, b, sq, h, d, bf)
     q_seg = torch.as_tensor(q_seg, device="cuda")
     kv_seg = torch.as_tensor(kv_seg, device="cuda")
     tag = (f"packed_attention_bwd b={b} h={h} kh={kh} sq={sq} sk={sk} d={d} "
@@ -702,9 +732,10 @@ def _check_pa_bwd(rng, b, h, kh, sq, sk, d, causal, q_seg, kv_seg, what=""):
                        q, k, v, q_seg, kv_seg, causal=causal, return_lse=True)
     _check_lse(f"{tag}: forward lse", lse, ref.packed_attention_lse_ref(
         q, k, q_seg, kv_seg, causal=causal), LSE_TOL)
-    got = _launch(packed_attention_bwd, packed_attention_bwd.
-                  packed_attention_bwd, q, k, v, out, lse, dout, q_seg,
-                  kv_seg, causal=causal)
+    *got, live_q, live_kv = _launch(
+        packed_attention_bwd, packed_attention_bwd.packed_attention_bwd, q,
+        k, v, out, lse, dout, q_seg, kv_seg, causal=causal, return_live=True)
+    pairs = _kernel_live_pairs(live_q, live_kv, q_seg, kv_seg, causal, tag)
     again = packed_attention_bwd.packed_attention_bwd(
         q, k, v, out, lse, dout, q_seg, kv_seg, causal=causal)
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
@@ -720,7 +751,8 @@ def _check_pa_bwd(rng, b, h, kh, sq, sk, d, causal, q_seg, kv_seg, what=""):
                               p_, TOL[bf]),
                   _check(f"{tag}: {name} vs autograd of "
                          "packed_attention_ref", g, a.grad, TOL[bf]))
-    log(f"[check] {tag}: dq, dk, dv bitwise equal over two calls")
+    log(f"[check] {tag}: dq, dk, dv bitwise equal over two calls; "
+        f"{pairs} live tile pairs, each CTA's count as the mirror's")
     return err
 
 
@@ -755,6 +787,13 @@ def _check_packed_attention_bwd():
     seg[1] = 0
     _check_pa_bwd(rng, 2, 8, 2, 256, 256, 128, True, seg, seg,
                   " padding q tile and padding row")
+    # dO with zero strides, as autograd hands it back for a loss such as
+    # (out * w).sum(): TMA cannot describe it, so the wrapper copies it
+    seg = _segs(rng, 2, 300)
+    row = torch.tensor(rng.normal(size=128), dtype=torch.float32,
+                       device="cuda").to(torch.bfloat16)
+    _check_pa_bwd(rng, 2, 8, 2, 300, 300, 128, True, seg, seg,
+                  " expanded dO", dout=row.expand(2, 8, 300, 128))
 
 
 def _check_grad_guards():
@@ -1237,7 +1276,7 @@ def phase_train() -> tuple[dict, np.ndarray]:
     state = init_train_state(model)
     opt_cfg = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=1000)
     step = make_train_step(model, opt_cfg)
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(TRAIN_SEED)
     seg = _data_plane_segs(rng, TRAIN_BATCH, TRAIN_SEQ)
     batch = _lm_batch(rng, cfg.vocab_size, seg, next_token=True)
     lengths = [np.bincount(r[r > 0]).tolist()[1:] for r in seg]
@@ -1316,8 +1355,7 @@ def phase_train() -> tuple[dict, np.ndarray]:
     attn = {n: sum(e.self_device_time_total for e in kernels
                    if any(w in e.key for w in words)) / 1e3
             for n, words in (("forward", ("packed_attention_tc_kernel",)),
-                             ("backward", ("dkdv_kernel", "dq_kernel",
-                                           "delta_kernel")))}
+                             ("backward", ("dq_kernel", "dkdv_kernel")))}
     log(f"[trace] {ARCH} train step ({cfg.num_layers} layers, "
         f"{TRAIN_BATCH}x{TRAIN_SEQ}): wall_ms={wall_ms:.3f} (profiler on) "
         f"device_busy_ms={busy_ms:.3f} busy_share={busy_ms / wall_ms:.4f} "
@@ -1332,16 +1370,11 @@ def phase_train() -> tuple[dict, np.ndarray]:
     return counts, seg
 
 
-def _time_packed_attention_bwd(cfg, launches, seg: np.ndarray) -> dict:
-    """The backward kernel at the training shape (TRAIN_BATCH x TRAIN_SEQ,
-    qwen3-8b heads, the training run's segment ids, causal), beside its
-    plain version and SDPA's backward (autograd of
-    ``F.scaled_dot_product_attention`` with the same boolean mask, eager,
-    timed as a yardstick only).  Bound: 10 d FLOP per valid (q, k) pair;
-    q, k, v, o, dO, lse, dq, dk and dv moved once."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import packed_attention, packed_attention_bwd
-    from repro_torch.kernels import ref
+def _bwd_sets(cfg, seg: np.ndarray) -> list:
+    """Four sets of the backward kernel's inputs at the training shape
+    (TRAIN_BATCH x TRAIN_SEQ, qwen3-8b heads, segment ids ``seg``, causal):
+    q, k, v, the forward kernel's out and lse, dout, and the segment ids."""
+    from repro_torch.kernels import packed_attention
     b, s = seg.shape
     h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
     bf = torch.bfloat16
@@ -1355,7 +1388,38 @@ def _time_packed_attention_bwd(cfg, launches, seg: np.ndarray) -> dict:
                                                      return_lse=True)
         sets.append((q, k, v, out, lse, _bshd(rng, b, s, h, d, bf), segs,
                      segs))
-    got = packed_attention_bwd.packed_attention_bwd(*sets[0])
+    return sets
+
+
+def _needed_tile_pairs(seg: np.ndarray, h: int) -> int:
+    """The 64 x 64 tile pairs holding a valid (q, k) pair, over every q
+    head, for causal self-attention on ``seg`` (counted on the host)."""
+    from repro_torch.kernels import ref
+    segs = torch.as_tensor(seg)
+    valid = ref._attention_mask(segs, segs, seg.shape[1], seg.shape[1], True)
+    b, s = seg.shape
+    n = -(-s // 64)
+    pad = torch.nn.functional.pad(valid[:, 0], (0, n * 64 - s, 0, n * 64 - s))
+    return int(pad.view(b, n, 64, n, 64).any(-1).any(2).sum()) * h
+
+
+def _time_packed_attention_bwd(cfg, launches, seg: np.ndarray) -> dict:
+    """The backward kernel at the training shape (``_bwd_sets``) beside its
+    plain version and SDPA's backward (autograd of
+    ``F.scaled_dot_product_attention`` with the same boolean mask, eager,
+    timed as a yardstick only).  Bound: 10 d FLOP per valid (q, k) pair;
+    q, k, v, o, dO, lse, dq, dk and dv moved once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import packed_attention_bwd, ref
+    b, s = seg.shape
+    h, d = cfg.num_heads, cfg.resolved_head_dim()
+    bf = torch.bfloat16
+    sets = _bwd_sets(cfg, seg)
+    segs = sets[0][6]
+    *got, live_q, live_kv = packed_attention_bwd.packed_attention_bwd(
+        *sets[0], return_live=True)
+    live = _kernel_live_pairs(live_q, live_kv, segs, segs, True,
+                              "packed_attention_bwd training shape")
     exp = ref.packed_attention_bwd_ref(*sets[0])
     err = max(_check(f"packed_attention_bwd training shape {name}", g, e,
                      TOL[bf]) for name, g, e in zip(("dq", "dk", "dv"), got,
@@ -1380,14 +1444,26 @@ def _time_packed_attention_bwd(cfg, launches, seg: np.ndarray) -> dict:
     pairs = sum(int(n) * (int(n) + 1) // 2 for row in seg
                 for n in np.bincount(row[row > 0])[1:]) * h
     log(f"[time] packed_attention_bwd training shape: {pairs} valid (q, k) "
-        f"pairs of {b * h * s * (s + 1) // 2} causal ones")
+        f"pairs of {b * h * s * (s + 1) // 2} causal ones; {live} live 64x64 "
+        f"tile pairs a launch as the kernel counted them, each CTA's count "
+        f"as ref.packed_attention_live_tiles' "
+        f"({_needed_tile_pairs(seg, h)} hold a valid pair)")
+    items = live_kv * (h // live_kv.shape[1])   # (q head, q tile) a CTA
+    log("[time] packed_attention_bwd work per CTA, from the kernel's counts:"
+        + "".join(f" {name} {t.numel()} CTAs, {what} min/mean/max "
+                  f"{int(t.min())}/{t.float().mean().item():.3f}/"
+                  f"{int(t.max())};" for name, what, t in (
+                      ("dQ", "key tiles", live_q),
+                      ("dK/dV", "items", items))))
     q, k, v, out, lse, dout = sets[0][:6]
     nbytes = _nbytes(q, k, v, out, dout, lse, *got)
-    return _record("packed_attention_bwd", "packed_attention_bwd.cu",
-                   "none: JAX differentiates segment_attention, "
-                   "src/repro/models/attention.py:70", launches, err, ms,
-                   plain_ms, (lib_ms, lib_ms), nbytes, 10 * d * pairs,
-                   PEAK_FLOPS[bf])
+    rec = _record("packed_attention_bwd", "packed_attention_bwd.cu",
+                  "none: JAX differentiates segment_attention, "
+                  "src/repro/models/attention.py:70", launches, err, ms,
+                  plain_ms, (lib_ms, lib_ms), nbytes, 10 * d * pairs,
+                  PEAK_FLOPS[bf])
+    rec["live_tile_pairs"] = live
+    return rec
 
 
 # ------------------------------------------------------------- 5. trace
@@ -1479,18 +1555,33 @@ def main_train():
         {f"train:{ARCH}": counts})]
 
 
+def main_bwd():
+    """``--only bwd``: the backward's build and checks, and its record at
+    the training shape."""
+    from repro_torch.configs import get_config
+    phase_build(("packed_attention", "packed_attention_bwd"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _check_packed_attention_bwd()
+    seg = _data_plane_segs(np.random.default_rng(TRAIN_SEED), TRAIN_BATCH,
+                           TRAIN_SEQ)
+    return [_with_paths(_time_packed_attention_bwd(get_config(ARCH), None,
+                                                   seg), {})]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["wkv6", "train"], default=None,
-                        help="run only this path's builds, checks and "
-                        "timing")
+    parser.add_argument("--only", choices=["wkv6", "train", "bwd"],
+                        default=None, help="run only this path's builds, "
+                        "checks and timing")
     args = parser.parse_args()
     name = phase_device()
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
     t0 = time.perf_counter()
     if args.only:
-        kernels = main_wkv6() if args.only == "wkv6" else main_train()
+        kernels = {"wkv6": main_wkv6, "train": main_train,
+                   "bwd": main_bwd}[args.only]()
         log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {

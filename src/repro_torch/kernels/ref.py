@@ -6,7 +6,9 @@ sends CPU tensors here; on the card they are the kernels' yardstick for
 correctness (not for speed).  Beside ``packed_attention_ref`` sit the
 plain versions of what the training path adds: ``packed_attention_lse_ref``
 (the forward kernel's log-sum-exp) and ``packed_attention_bwd_ref`` (the
-backward kernel), used by the tests and chip_smoke.py, by no model.  Two
+backward kernel), and ``packed_attention_live_tiles``, the tile pairs the
+kernels' skip rule keeps; the tests and chip_smoke.py use them, no model
+does.  Two
 plain versions of WKV6 sit here: the sequential oracle ``wkv6_ref`` and
 ``wkv6_chunked``, the port of the JAX model's chunked path
 (``repro.models.rwkv.wkv6_chunked``), which ``models.rwkv`` re-exports
@@ -100,6 +102,37 @@ def packed_attention_bwd_ref(q, k, v, out, lse, dout, q_seg, kv_seg, *,
     dk = dk.reshape(b, kh, h // kh, sk, d).sum(2)
     dv = dv.reshape(b, kh, h // kh, sk, d).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def packed_attention_live_tiles(q_seg, kv_seg, *, causal: bool = True):
+    """(b, n_qt, n_kt) bool: the (q tile, kv tile) pairs of 64 rows that
+    the kernels compute, by the forward's skip rule
+    (src/repro/kernels/packed_attention.py:55-63) as the backward kernel
+    applies it: both tiles hold an id > 0, their id ranges (padding
+    included, rows past the sequence left out) meet, and when causal the q
+    tile's last row comes at or after the kv tile's first."""
+    tile = 64
+
+    def ranges(seg):
+        b, s = seg.shape
+        n = -(-s // tile)
+        inside = (torch.arange(n * tile, device=seg.device) < s)[None]
+        x = torch.nn.functional.pad(seg, (0, n * tile - s))
+        big = torch.iinfo(seg.dtype).max
+        lo = torch.where(inside, x, big).view(b, n, tile).amin(-1)
+        hi = torch.where(inside, x, -big).view(b, n, tile).amax(-1)
+        return lo, hi
+    (qlo, qhi), (klo, khi) = ranges(q_seg), ranges(kv_seg)
+    live = ((qhi[:, :, None] > 0) & (khi[:, None, :] > 0)
+            & (qhi[:, :, None] >= klo[:, None, :])
+            & (khi[:, None, :] >= qlo[:, :, None]))
+    if causal:
+        dev = q_seg.device
+        q_last = torch.clamp(torch.arange(qlo.shape[1], device=dev) * tile
+                             + tile, max=q_seg.shape[1]) - 1
+        k_first = torch.arange(klo.shape[1], device=dev) * tile
+        live = live & (q_last[:, None] >= k_first[None, :])[None]
+    return live
 
 
 def flash_decode_ref(q, k_cache, v_cache, cache_len):

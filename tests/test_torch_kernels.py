@@ -10,6 +10,7 @@ the card by chip_smoke.py.
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import ref as jref
@@ -194,6 +195,84 @@ def test_packed_attention_lse_ref_is_the_softmax_normaliser(b, h, kh, sq, sk,
         atol=TOL["float32"], rtol=TOL["float32"])
 
 
+def _short_docs(rng, b, s, pad):
+    """Rows packed as the data plane packs them: documents of log-normal
+    lengths (median ~20 tokens, as the coyo text sources draw them), many
+    to a 64-row tile, then ``pad`` padding rows."""
+    out = np.zeros((b, s), np.int32)
+    for i in range(b):
+        pos, sid = 0, 1
+        while pos < s - pad:
+            n = int(np.clip(rng.lognormal(3.0, 1.2), 1, s - pad - pos))
+            out[i, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return out
+
+
+# (b, h, kh, sq, sk, d, pad): GQA, MQA and MHA; ragged lengths; sq != sk
+SHORT_DOC_SHAPES = [
+    (2, 4, 2, 200, 200, 32, 13),
+    (1, 4, 1, 130, 130, 16, 0),
+    (2, 2, 2, 96, 160, 16, 7),
+]
+
+
+@pytest.mark.parametrize("b,h,kh,sq,sk,d,pad", SHORT_DOC_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_packed_attention_bwd_ref_matches_jax_vjp(b, h, kh, sq, sk, d, pad,
+                                                  causal):
+    """The backward kernel's plain version (from the port's out and lse)
+    against ``jax.vjp`` of the JAX package's ``packed_attention_ref``, on
+    the same numpy inputs and short-document rows, float32 at TOL."""
+    rng = np.random.default_rng([b, h, kh, sq, sk, d, pad, int(causal)])
+    x = {n: rng.normal(size=shape).astype(np.float32) for n, shape in (
+        ("q", (b, h, sq, d)), ("k", (b, kh, sk, d)), ("v", (b, kh, sk, d)),
+        ("dout", (b, h, sq, d)))}
+    q_seg = _short_docs(rng, b, sq, pad)
+    kv_seg = q_seg if sq == sk else _short_docs(rng, b, sk, 0)
+    q, k, v, dout = (torch.from_numpy(x[n]) for n in ("q", "k", "v", "dout"))
+    tq, tk = torch.from_numpy(q_seg), torch.from_numpy(kv_seg)
+    out = ref.packed_attention_ref(q, k, v, tq, tk, causal=causal)
+    lse = ref.packed_attention_lse_ref(q, k, tq, tk, causal=causal)
+    got = ref.packed_attention_bwd_ref(q, k, v, out, lse, dout, tq, tk,
+                                       causal=causal)
+    _, vjp = jax.vjp(lambda a, b_, c: jref.packed_attention_ref(
+        a, b_, c, q_seg, kv_seg, causal=causal), x["q"], x["k"], x["v"])
+    for name, g, e in zip("qkv", got, vjp(jnp.asarray(x["dout"]))):
+        assert g.shape == e.shape, name
+        _close(g, e, "float32")
+
+
+@pytest.mark.parametrize("b,h,kh,sq,sk,d,pad", SHORT_DOC_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_packed_attention_live_tiles_hold_every_valid_pair(b, h, kh, sq, sk,
+                                                           d, pad, causal):
+    """Every 64 x 64 tile pair that holds a valid (q, k) pair is live, and
+    on whole tiles the mirror is the Pallas kernel's own skip rule
+    (src/repro/kernels/packed_attention.py:55-63)."""
+    rng = np.random.default_rng([b, sq, sk, pad, int(causal)])
+    q_seg = _short_docs(rng, b, sq, pad)
+    kv_seg = q_seg if sq == sk else _short_docs(rng, b, sk, 0)
+    tq, tk = torch.from_numpy(q_seg), torch.from_numpy(kv_seg)
+    live = ref.packed_attention_live_tiles(tq, tk, causal=causal)
+    nq, nk = -(-sq // 64), -(-sk // 64)
+    assert live.shape == (b, nq, nk)
+    valid = ref._attention_mask(tq, tk, sq, sk, causal)[:, 0]
+    valid = torch.nn.functional.pad(valid, (0, nk * 64 - sk, 0, nq * 64 - sq))
+    needed = valid.view(b, nq, 64, nk, 64).any(-1).any(2)
+    assert (live | ~needed).all() and needed.any()
+    # the Pallas rule, on the tiles that lie wholly inside both sequences
+    for i in range(b):
+        for iq in range(sq // 64):
+            for ik in range(sk // 64):
+                qs = q_seg[i, iq * 64:iq * 64 + 64]
+                ks = kv_seg[i, ik * 64:ik * 64 + 64]
+                rule = (qs.max() >= ks.min() and ks.max() >= qs.min()
+                        and qs.max() > 0 and ks.max() > 0
+                        and (not causal or iq * 64 + 63 >= ik * 64))
+                assert bool(live[i, iq, ik]) == rule, (i, iq, ik)
+
+
 def test_ops_packed_attention_on_cpu_carries_grads():
     """On CPU tensors under grad, ``ops.packed_attention`` is the
     differentiable plain version: q, k and v all get gradients."""
@@ -277,13 +356,32 @@ def test_packed_attention_lse_is_bfloat16_only():
 
 def test_packed_attention_bwd_wrapper_refuses_cpu_tensors():
     """No fallback: the backward wrapper launches on CUDA tensors or
-    raises (its dtype and head_dim checks run on the card)."""
+    raises (its lse and segment id checks run on the card)."""
     t = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)
     seg = torch.ones((1, 8), dtype=torch.int32)
     before = packed_attention_bwd.launches
     with pytest.raises(ValueError, match="CUDA"):
         packed_attention_bwd.packed_attention_bwd(
             t, t, t, t, torch.zeros((1, 2, 8)), t, seg, seg)
+    assert packed_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("sq,sk", [(packed_attention_bwd.MAX_SEQ + 1, 64),
+                                   (64, packed_attention_bwd.MAX_SEQ + 1)])
+def test_packed_attention_bwd_wrapper_refuses_long_sequences(sq, sk):
+    """The kernel lists at most MAX_SEQ / 64 live tiles a CTA: a longer q
+    or kv sequence raises before any launch (zero-stride inputs, no
+    memory)."""
+    bf = torch.bfloat16
+    q = torch.zeros((), dtype=bf).expand(1, 2, sq, 16)
+    k = torch.zeros((), dtype=bf).expand(1, 2, sk, 16)
+    limit = packed_attention_bwd.MAX_SEQ
+    before = packed_attention_bwd.launches
+    with pytest.raises(ValueError, match=f"at most {limit}"):
+        packed_attention_bwd.packed_attention_bwd(
+            q, k, k, q, torch.zeros((1, 2, sq)), q,
+            torch.ones((1, sq), dtype=torch.int32),
+            torch.ones((1, sk), dtype=torch.int32))
     assert packed_attention_bwd.launches == before
 
 

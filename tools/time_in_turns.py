@@ -1,21 +1,35 @@
-"""Time a variant of the packed_attention forward kernel against the
-committed one in turns, at qwen3-8b's serve shape, on one NVIDIA card.
+"""Time a variant of one of the port's attention kernels against the
+committed one in turns, on one NVIDIA card.
 
     git show <commit>:src/repro_torch/kernels/csrc/packed_attention.cu \\
         > _archive/packed_attention_variant.cu
-    python3 tools/time_in_turns.py _archive/packed_attention_variant.cu \\
+    python3 tools/time_in_turns.py fwd _archive/packed_attention_variant.cu \\
         --no-lse-arg
+    git show <commit>:src/repro_torch/kernels/csrc/packed_attention_bwd.cu \\
+        > _archive/packed_attention_bwd_variant.cu
+    python3 tools/time_in_turns.py bwd _archive/packed_attention_bwd_variant.cu
 
 The variant is built with the port's nvcc flags into
-``build/repro_torch_kernels/variants/`` and loaded with ctypes;
-``--no-lse-arg`` takes the C interface from before the forward had an
-``lse`` argument.  Each of ``ROUNDS`` rounds times the variant, the
-committed kernel as the serve path calls it (no lse) and as the training
-path calls it (with lse), in that order on even rounds and in the reverse
-order on odd ones: each time is the mean of 40 calls replayed from a CUDA
-graph (``chip_smoke._time_ms``), over four sets of inputs.  Prints the card's
-name and power limit, every time, the means and medians, and in how many
-rounds the committed kernel without lse was faster than the variant.
+``build/repro_torch_kernels/variants/`` and loaded with ctypes.  Each of
+``ROUNDS`` rounds times every run in one order on even rounds and in the
+reverse order on odd ones: each time is the mean of calls replayed from a
+CUDA graph (``chip_smoke._time_ms``) over four sets of inputs.
+
+``fwd``: the forward kernel at qwen3-8b's serve shape; the runs are the
+variant, the committed kernel as the serve path calls it (no lse) and as
+the training path calls it (with lse).  ``--no-lse-arg`` takes the C
+interface from before the forward had an ``lse`` argument.
+
+``bwd``: the backward kernel at the training shape (``chip_smoke.
+_bwd_sets`` on the data plane's documents); the variant has the committed
+C interface.  The runs are the variant, the committed kernel, and each of
+the committed kernel's two launches alone (its source built with
+``-DPA_BWD_PARTS=1`` or ``2``).  After the rounds one pass of each whole
+kernel under ``torch.profiler`` gives every launch's device time, the
+variant's too.
+
+Prints the card's name and power limit, every time, the means and medians,
+and in how many rounds the committed kernel was faster than the variant.
 """
 from __future__ import annotations
 
@@ -23,9 +37,11 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -36,46 +52,75 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels import packed_attention as pa  # noqa: E402
 
 ROUNDS = 10
 
 
-def _load_variant(src: str, no_lse_arg: bool):
+def _build_variants(jobs: dict) -> dict:
+    """``{name: (source, extra nvcc flags)}`` built in parallel; returns
+    ``{name: ctypes.CDLL}``."""
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
-    lib = out / ("lib" + os.path.basename(src).replace(".cu", ".so"))
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), src],
-                   check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(lib)).packed_attention_launch
+    t0 = time.perf_counter()
+    procs = {}
+    for name, (src, flags) in jobs.items():
+        lib = out / ("lib" + name.replace(" ", "_") + ".so")
+        procs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{text}")
+        libs[name] = ctypes.CDLL(str(lib))
+    print(f"[turns] built {sorted(libs)} in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return libs
+
+
+def _in_turns(module, runs: dict, sets: list, iters: int) -> dict:
+    """``runs``: ``{name: (C entry, wrapper)}``; each round times every run
+    with ``module._kernel`` set to its entry, the order alternating."""
+    committed = module._kernel()
+    times = {name: [] for name in runs}
+    order = list(runs)
+    for r in range(ROUNDS):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            kernel, fn = runs[name]
+            module._kernel = lambda k=kernel: k
+            times[name].append(cs._time_ms(fn, sets, iters)[0])
+        print(f"[turns] round {r}: " + " ".join(
+            f"{n.replace(' ', '_')}={times[n][-1]:.5f}" for n in order),
+            flush=True)
+    module._kernel = lambda: committed
+    return times
+
+
+def _summary(smi: str, shape, times: dict, **extra) -> dict:
+    faster = sum(c < v for c, v in zip(times["committed"], times["variant"]))
+    return {"device": smi, "shape": shape, "ms": times,
+            "mean_ms": {n: statistics.fmean(t) for n, t in times.items()},
+            "median_ms": {n: statistics.median(t) for n, t in times.items()},
+            "committed_faster_rounds": faster, "rounds": ROUNDS, **extra}
+
+
+def run_fwd(smi: str, src: str, no_lse_arg: bool) -> dict:
+    from repro_torch.kernels import packed_attention as pa
+    fn = _build_variants({"variant": (src, [])})["variant"] \
+        .packed_attention_launch
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     fn.argtypes = ([ptr] * (6 if no_lse_arg else 7) + [i32] * 6 + [i64] * 14
                    + [f32, i32, i32, i32, ptr])
     fn.restype = i32
-    if not no_lse_arg:
-        return fn
-
-    def without_lse(*args):
-        if args[6] is not None:
-            raise ValueError("this variant writes no log-sum-exp")
-        return fn(*args[:6], *args[7:])
-    return without_lse
-
-
-def main():
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("variant", help="path of the variant .cu")
-    parser.add_argument("--no-lse-arg", action="store_true",
-                        help="the variant's C entry has no lse argument")
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("time_in_turns: needs an NVIDIA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-    print(f"[turns] nvidia-smi: {smi}", flush=True)
-    variant = _load_variant(args.variant, args.no_lse_arg)
+    variant = fn
+    if no_lse_arg:
+        def variant(*args):
+            if args[6] is not None:
+                raise ValueError("this variant writes no log-sum-exp")
+            return fn(*args[:6], *args[7:])
     committed = pa._kernel()
     b, s, h, kh, d = cs.BATCH, cs.PROMPT, 32, 8, 128   # qwen3-8b serve
     rng = np.random.default_rng(2)
@@ -84,9 +129,6 @@ def main():
     sets = [(cs._bshd(rng, b, s, h, d, bf), cs._bshd(rng, b, s, kh, d, bf),
              cs._bshd(rng, b, s, kh, d, bf), seg, seg) for _ in range(4)]
 
-    def use(kernel):
-        pa._kernel = lambda: kernel
-
     def with_lse(*a):
         return pa.packed_attention(*a, return_lse=True)
     runs = {"variant": (variant, pa.packed_attention),
@@ -94,27 +136,91 @@ def main():
             "committed+lse": (committed, with_lse)}
     outs = {}
     for name in ("variant", "committed"):
-        use(runs[name][0])
-        outs[name] = runs[name][1](*sets[0])
+        pa._kernel = lambda k=runs[name][0]: k
+        outs[name] = pa.packed_attention(*sets[0])
+    pa._kernel = lambda: committed
     diff = (outs["variant"].float() - outs["committed"].float()).abs()
     print(f"[turns] variant vs committed output max abs diff "
           f"{diff.max().item():.3e}", flush=True)
-    times = {name: [] for name in runs}
-    order = list(runs)
-    for r in range(ROUNDS):
-        for name in (order if r % 2 == 0 else order[::-1]):
-            kernel, fn = runs[name]
-            use(kernel)
-            times[name].append(cs._time_ms(fn, sets, 40)[0])
-        print(f"[turns] round {r}: "
-              + " ".join(f"{n}={times[n][-1]:.5f}" for n in order), flush=True)
-    use(committed)
-    faster = sum(c < v for c, v in zip(times["committed"], times["variant"]))
-    print(json.dumps({
-        "device": smi, "shape": [b, s, h, kh, d], "ms": times,
-        "mean_ms": {n: statistics.fmean(t) for n, t in times.items()},
-        "median_ms": {n: statistics.median(t) for n, t in times.items()},
-        "committed_faster_rounds": faster, "rounds": ROUNDS}))
+    return _summary(smi, [b, s, h, kh, d], _in_turns(pa, runs, sets, 40))
+
+
+def _launch_ms(module, kernel, sets: list, calls: int) -> dict:
+    """Device ms of each launch a call makes, from torch.profiler over
+    ``calls`` eager calls of ``kernel``."""
+    from torch.profiler import ProfilerActivity, profile
+    committed = module._kernel()
+    module._kernel = lambda: kernel
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            module.packed_attention_bwd(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    module._kernel = lambda: committed
+    return {(re.search(r"(\w+_kernel)", e.key) or [e.key[:60]])[0]:
+            e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def run_bwd(smi: str, src: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import packed_attention_bwd as pab
+    committed = pab._kernel()
+    mine = _build.CSRC / "packed_attention_bwd.cu"
+    libs = _build_variants({"variant": (src, []),
+                            "committed dq": (mine, ["-DPA_BWD_PARTS=1"]),
+                            "committed dkdv": (mine, ["-DPA_BWD_PARTS=2"])})
+    kernels = {"committed": committed}
+    for name, lib in libs.items():
+        fn = lib.packed_attention_bwd_launch
+        fn.argtypes, fn.restype = committed.argtypes, ctypes.c_int
+        kernels[name] = fn
+    cfg = get_config(cs.ARCH)
+    seg = cs._data_plane_segs(np.random.default_rng(cs.TRAIN_SEED),
+                              cs.TRAIN_BATCH, cs.TRAIN_SEQ)
+    sets = cs._bwd_sets(cfg, seg)
+    outs = {}
+    for name in ("variant", "committed"):
+        pab._kernel = lambda k=kernels[name]: k
+        outs[name] = pab.packed_attention_bwd(*sets[0])
+    pab._kernel = lambda: committed
+    diff = max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(outs["variant"], outs["committed"]))
+    print(f"[turns] variant vs committed dq, dk, dv max abs diff "
+          f"{diff:.3e}", flush=True)
+    order = ("variant", "committed", "committed dq", "committed dkdv")
+    times = _in_turns(pab, {n: (kernels[n], pab.packed_attention_bwd)
+                            for n in order}, sets, 20)
+    launch_ms = {n: _launch_ms(pab, kernels[n], sets, 40)
+                 for n in ("variant", "committed")}
+    for name, split in launch_ms.items():
+        print(f"[turns] {name}: whole call {statistics.fmean(times[name]):.5f}"
+              " ms; each launch under the profiler: " + ", ".join(
+                  f"{k} {v:.5f}" for k, v in split.items()), flush=True)
+    return _summary(smi, [*seg.shape, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.resolved_head_dim()], times,
+                    launch_ms_profiler=launch_ms, max_abs_diff=diff)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("kernel", choices=["fwd", "bwd"])
+    parser.add_argument("variant", help="path of the variant .cu")
+    parser.add_argument("--no-lse-arg", action="store_true",
+                        help="fwd: the variant's C entry has no lse argument")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_in_turns: needs an NVIDIA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(f"[turns] nvidia-smi: {smi}", flush=True)
+    if args.kernel == "fwd":
+        result = run_fwd(smi, args.variant, args.no_lse_arg)
+    else:
+        result = run_bwd(smi, args.variant)
+    print(json.dumps(result))
 
 
 if __name__ == "__main__":
