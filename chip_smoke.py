@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only wkv6
     python3 chip_smoke.py --only train
     python3 chip_smoke.py --only bwd
+    python3 chip_smoke.py --only trainer
 
 Phases (any failure raises, and the exit code is not 0):
   1. device  — the card's name, count and power limit; no card, no run.
@@ -50,16 +51,33 @@ Phases (any failure raises, and the exit code is not 0):
                after: 8 forward and 8 backward launches a step), losses,
                step time, tokens/s and peak memory; one step by its parts
                (forward, backward, update) and one under the profiler.
+  8. trainer — the same model (freed and drawn again) trained by
+               ``repro_torch.train.trainer.Trainer`` from a live Overlord
+               (the port's copy of the data plane: four coyo-like sources,
+               DP 4 x 1 row x 1024, 96 samples a step, a strict delivery
+               ledger): 8 steps with the counts set to 0 before and read
+               after (8 forward and 8 backward launches a step), finite
+               losses, every batch holding tokens, the ledger verified;
+               each batch's fill, documents and per-row sum of squared
+               document lengths; one step under the profiler with its
+               batch fetch, one without, and one with the data plane shut
+               down.  Then
+               ``repro_torch.launch.train`` at the reduced size on the card
+               (100 steps: the loss must close a share of its gap to
+               ln(V - 1), the floor on the data plane's uniform tokens)
+               and a bitwise checkpoint round trip of its trainer.
   7. time    — each kernel at the serving shapes (CUDA events around a
                CUDA-graph replay, and around eager calls), beside its plain
                version, one PyTorch library call where there is one, and
                its bound; the backward kernel at the training shape.
+               Runs after phase 8, so every record has its count there.
 The line before the last is a JSON ``kernels`` record: each kernel's
 ``launches`` is its count on the path the record is timed on
 (``launches_path``: packed_attention and flash_decode on the qwen3-8b
 serve run, wkv6 on the rwkv6-3b one, packed_attention_bwd on the training
-run, 5 steps), and ``launches_by_path`` its count on every path, each read
-from its own zeroed run; the last line is ``{"ok": true, "device": {...}}``.
+run, 5 steps), and ``launches_by_path`` its count on every path
+(``trainer:qwen3-8b`` is phase 8), each read from its own zeroed run; the
+last line is ``{"ok": true, "device": {...}}``.
 
 ``--only wkv6`` is the short loop for the wkv6 kernel: phase 1, the wkv6
 build, its phase-3 checks (``_check_wkv6``, ``_check_reduced_rwkv``) and
@@ -67,6 +85,10 @@ its timing, with no serve run (so its record's ``launches`` is null).
 ``--only train`` is the short loop for training: phase 1, the builds of
 packed_attention and packed_attention_bwd, the training checks, phase 6
 and the backward kernel's record.
+``--only trainer`` is the short loop for the Overlord-fed trainer: phase
+1, the builds of packed_attention and packed_attention_bwd, phase 8, and
+the backward's record at the shape of the trainer's first batch
+(``launches_path`` ``trainer:qwen3-8b``).
 ``--only bwd`` is the short loop for the backward kernel: phase 1, the
 builds of packed_attention and packed_attention_bwd, the backward checks,
 and the backward's record at the training shape with the live tile pairs
@@ -113,6 +135,17 @@ RWKV_ARCH = "rwkv6-3b"             # served at the same batch, prompt, gen
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4, 1024, 5
 TRAIN_PARAMS = 2_788_235_264
 TRAIN_SEED = 11                    # the training batch's documents and tokens
+# the trainer phase: the same model and global batch fed by the Overlord,
+# 96 samples a step (left at 0, the planner would size a step at 0.6 x
+# capacity / 96 = 25 samples, as if each held 96 tokens; the coyo-like
+# texts have a median near 20)
+TRAINER_STEPS, TRAINER_SAMPLES = 8, 96
+# the reduced launcher's run: its tokens are uniform on [1, V), so no model
+# does better than ln(V - 1) on them; in LAUNCHER_STEPS steps the mean of
+# the last five losses must close LAUNCHER_GAP_SHARE of the gap from the
+# first five's mean to that floor (an update that does nothing closes none
+# of it, give or take the steps' spread of ~0.03 in a gap of ~0.49)
+LAUNCHER_STEPS, LAUNCHER_GAP_SHARE = 100, 0.3
 # the training rows' documents: the text-token log-normal (mu, sigma) of
 # each source of coyo_like_specs(4), the group the JAX package's training
 # launcher reads by default (src/repro/launch/train.py:58), as
@@ -1220,11 +1253,12 @@ RECORD_PATH = {"packed_attention": f"serve:{ARCH}",
                "packed_attention_bwd": f"train:{ARCH}"}
 
 
-def _with_paths(rec: dict, paths: dict) -> dict:
-    """``launches``: the count on the record's own path (``launches_path``;
-    null where that path did not run); ``launches_by_path``: the kernel's
-    count on every path that ran, each from its own zeroed run."""
-    own = RECORD_PATH[rec["name"]]
+def _with_paths(rec: dict, paths: dict, own: str | None = None) -> dict:
+    """``launches``: the count on the record's own path (``launches_path``,
+    ``RECORD_PATH``'s unless ``own`` is given; null where that path did not
+    run); ``launches_by_path``: the kernel's count on every path that ran,
+    each from its own zeroed run."""
+    own = own or RECORD_PATH[rec["name"]]
     rec["launches"] = paths[own][rec["name"]] if own in paths else None
     rec["launches_path"] = own
     rec["launches_by_path"] = {path: counts[rec["name"]]
@@ -1368,6 +1402,243 @@ def phase_train() -> tuple[dict, np.ndarray]:
         log(f"[trace]   {e.self_device_time_total / 1e3:9.4f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
     return counts, seg
+
+
+# ----------------------------------------------------------- 8. trainer
+def _trainer_plane(root: str, cfg):
+    """The data plane of the trainer phase, from the port's copy of the
+    Overlord: the four coyo-like sources the JAX launcher reads by default,
+    equal weights, DP ``TRAIN_BATCH`` with one row and one bin a bucket (a
+    global batch of TRAIN_BATCH x TRAIN_SEQ), ``TRAINER_SAMPLES`` samples a
+    step, balanced by ``backbone_cost`` of the depth-cut config that trains,
+    a strict delivery ledger, and no launch-time analysis (not ported)."""
+    from repro_torch.core import (ClientPlaceTree, Overlord, OverlordConfig,
+                                  StaticSchedule)
+    from repro_torch.data.cost_models import backbone_cost
+    from repro_torch.data.sources import coyo_like_specs, materialize_group
+    specs = coyo_like_specs(4)
+    paths = materialize_group(specs, root)
+    tree = ClientPlaceTree([("PP", 1), ("DP", TRAIN_BATCH), ("CP", 1),
+                            ("TP", 1)])
+    return Overlord(paths, tree, StaticSchedule({s.name: 1.0 for s in specs}),
+                    OverlordConfig(
+                        seq_len=TRAIN_SEQ, rows_per_microbatch=1, n_bins=1,
+                        samples_per_step=TRAINER_SAMPLES,
+                        strategy="backbone_balance",
+                        strategy_params=dict(costfn=backbone_cost(cfg),
+                                             broadcast=()),
+                        vocab_size=cfg.vocab_size, ledger=True),
+                    validate=False)
+
+
+def _row_stats(seg: np.ndarray) -> str:
+    """Fill, documents, and the rows' sum of squared document lengths (the
+    attention cost the balancer evens out), max over mean."""
+    lens = [np.bincount(r[r > 0])[1:] for r in seg]
+    sq = np.array([float((n.astype(np.int64) ** 2).sum()) for n in lens])
+    return (f"fill={(seg > 0).mean():.4f} documents="
+            f"{sum(int((n > 0).sum()) for n in lens)} sum_l2 per row "
+            f"{sq.astype(int).tolist()} max/mean={sq.max() / sq.mean():.4f}")
+
+
+def _profiled(fn) -> tuple[str, float]:
+    """``fn()`` once under the profiler: wall ms, the device's busy ms and
+    share, and its launches; returns them as text, and what ``fn``
+    returned."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return (f"wall_ms={wall_ms:.3f} (profiler on) device_busy_ms="
+            f"{busy_ms:.3f} busy_share={busy_ms / wall_ms:.4f} "
+            f"kernel_launches={sum(e.count for e in kernels)} "
+            f"loss={out}"), out
+
+
+def phase_trainer() -> tuple[dict, np.ndarray]:
+    """qwen3-8b at full width with TRAIN_LAYERS layers trained by the port's
+    ``Trainer`` from a live Overlord (``_trainer_plane``): TRAINER_STEPS
+    steps with every kernel's count set to 0 just before and read just
+    after, each batch's rows logged; then one step under the profiler with
+    its fetch, one on a batch fetched before it, and that batch again once
+    the data plane is shut down; then the reduced launcher on the card and
+    a checkpoint round trip.  Returns the counts and the first batch's
+    segment ids."""
+    import collections
+    import gc
+    import tempfile
+    import threading
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[trainer] memory_allocated before the phase: "
+        f"{torch.cuda.memory_allocated()} B")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(ARCH).replace(num_layers=TRAIN_LAYERS)
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"{n_params} parameters, not {TRAIN_PARAMS}")
+    kept = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sources_") as root:
+        ov = _trainer_plane(root, cfg)
+        try:
+            ov.start()
+            trainer = Trainer(model, ov, TrainerConfig(
+                steps=TRAINER_STEPS, log_every=1, opt=AdamWConfig(
+                    peak_lr=1e-3, warmup_steps=2, total_steps=1000)))
+            assemble = trainer._assemble_global_batch
+
+            def assemble_and_keep(step):
+                batch = assemble(step)
+                kept.append(batch["segment_ids"])
+                return batch
+            trainer._assemble_global_batch = assemble_and_keep
+            torch.cuda.synchronize()
+            _zero_launch_counts()
+            hist = trainer.train(TRAINER_STEPS)
+            counts = _launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+
+            def step_on(batch_fn):
+                """A step as ``Trainer.train`` runs it, on ``batch_fn()``."""
+                trainer.state, metrics = trainer.step_fn(trainer.state,
+                                                         batch_fn())
+                return float(metrics["loss"])
+            # one step with its fetch in the window, one on a batch fetched
+            # before it, and (below) that batch again with the plane shut
+            step = TRAINER_STEPS
+            with_fetch, loss = _profiled(lambda: step_on(
+                lambda: assemble(step)))
+            ov.step_done(step, {"loss": loss})
+            batch = assemble(step + 1)
+            without, loss = _profiled(lambda: step_on(lambda: batch))
+            ov.step_done(step + 1, {"loss": loss})
+            report = ov.ledger.verify(strict=True)
+            drops = collections.Counter(
+                ov.ledger.snapshot()["dropped"].values())
+            threads = threading.active_count()
+        finally:
+            ov.shutdown()
+    shut, _ = _profiled(lambda: step_on(lambda: batch))
+    log(f"[trainer] {ARCH} layers={cfg.num_layers} of 36 d_model="
+        f"{cfg.d_model} params={n_params}; Overlord: coyo_like_specs(4), "
+        f"DP {TRAIN_BATCH} x 1 row x {TRAIN_SEQ}, samples_per_step "
+        f"{TRAINER_SAMPLES}, backbone_balance on the {cfg.num_layers}-layer "
+        "config")
+    segs = [s.cpu().numpy() for s in kept]
+    for rec, seg in zip(hist, segs):
+        log(f"[trainer] step {rec['step']} loss={rec['loss']} "
+            f"fetch_s={rec['fetch_s']} step_s={rec['step_s']} "
+            f"grad_norm={rec['grad_norm']} {_row_stats(seg)}")
+    fetch = float(np.mean([r["fetch_s"] for r in hist[1:]])) * 1e3
+    step_ms = float(np.mean([r["step_s"] for r in hist[1:]])) * 1e3
+    log(f"[trainer] steps 2-{TRAINER_STEPS} mean: step_ms={step_ms:.3f} "
+        f"fetch_ms={fetch:.3f} (host clock; the step ends when the loss "
+        f"reaches the host, the fetch runs before it, in series) "
+        f"{TRAIN_BATCH * TRAIN_SEQ / (step_ms + fetch) * 1e3:.1f} "
+        "positions/s")
+    first, last, share = _gap_closed([r["loss"] for r in hist],
+                                     cfg.vocab_size)
+    log(f"[trainer] loss: mean of the first 5 {first}, of the last 5 "
+        f"{last}, ln(V - 1) {np.log(cfg.vocab_size - 1)}: {share:.4f} of "
+        "the gap closed (logged, not checked)")
+    log(f"[trainer] max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB)")
+    log(f"[trainer] launches on the path: {counts}")
+    log(f"[trace] {ARCH} trainer step with its fetch: {with_fetch}")
+    log(f"[trace] {ARCH} trainer step, batch fetched before: {without}")
+    log(f"[trace] {ARCH} trainer step on that batch again, the data plane "
+        f"shut down ({threading.active_count()} Python threads): {shut}")
+    log(f"[trainer] ledger {report}; dropped by reason {dict(drops)}; "
+        f"{threads} Python threads alive (the data plane's actors, the "
+        "clients' prefetchers and this one)")
+    want = {"packed_attention": cfg.num_layers * TRAINER_STEPS,
+            "packed_attention_bwd": cfg.num_layers * TRAINER_STEPS,
+            "flash_decode": 0, "wkv6": 0}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts} != expected {want}")
+    losses = [r["loss"] for r in hist]
+    if len(hist) != TRAINER_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"trainer losses {losses}")
+    empty = [i for i, s in enumerate(segs) if not (s > 0).any()]
+    if len(segs) != TRAINER_STEPS or empty:
+        raise AssertionError(f"batches without tokens at steps {empty}")
+    del trainer, model, kept, assemble, assemble_and_keep, batch, step_on
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_reduced_launcher()
+    return counts, segs[0]
+
+
+def _gap_closed(losses, vocab: int) -> tuple[float, float, float]:
+    """The means of the first and last five ``losses``, and the share of
+    the gap from the first mean to ln(``vocab`` - 1) that the last closed:
+    the data plane's tokens are uniform on [1, vocab), so ln(vocab - 1)
+    is the least loss a model can reach on documents it has not seen."""
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    return first, last, (first - last) / (first - float(np.log(vocab - 1)))
+
+
+def _check_reduced_launcher():
+    """``launch.train.main`` at the reduced size on the card, through the
+    kernels, for LAUNCHER_STEPS steps with the JAX launcher's defaults: the
+    loss must close LAUNCHER_GAP_SHARE of its gap to ln(V - 1)
+    (``_gap_closed``); then a checkpoint of its trainer loads into a fresh
+    one bitwise."""
+    from repro_torch.configs.qwen3_8b import reduced
+    from repro_torch.launch import train
+    cfg = reduced()
+    _zero_launch_counts()
+    out = train.main(["--reduced", "--steps", str(LAUNCHER_STEPS)])
+    counts = _launch_counts()
+    losses = [r["loss"] for r in out["history"]]
+    first, last, share = _gap_closed(losses, cfg.vocab_size)
+    log(f"[trainer] reduced launcher on {out['trainer'].device}: losses "
+        f"{losses}; mean of the first 5 {first}, of the last 5 {last}, "
+        f"ln(V - 1) {np.log(cfg.vocab_size - 1)}: {share:.4f} of the gap "
+        f"closed (at least {LAUNCHER_GAP_SHARE}); launches {counts}")
+    want = LAUNCHER_STEPS * cfg.num_layers
+    if out["trainer"].device.type != "cuda" or counts[
+            "packed_attention"] != want or counts[
+            "packed_attention_bwd"] != want:
+        raise AssertionError("the reduced launcher did not train through "
+                             "the kernels on the card")
+    if not np.isfinite(losses).all() or not share >= LAUNCHER_GAP_SHARE:
+        raise AssertionError(f"reduced launcher: losses not finite, or "
+                             f"{share:.4f} of the gap to ln(V - 1) closed")
+    _check_checkpoint_round_trip(out["trainer"])
+
+
+def _check_checkpoint_round_trip(trainer):
+    """``trainer``'s checkpoint, loaded into a fresh trainer of other
+    weights on the same device, gives every leaf bitwise equal."""
+    import tempfile
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.trainer import Trainer, TrainerConfig, state_leaves
+    cfg, step = trainer.model.cfg, int(trainer.state.opt.step)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        trainer.cfg.ckpt_dir = ckpt
+        trainer.save_checkpoint(step)
+        fresh = Trainer(build_model(cfg, torch.Generator(
+            device=trainer.device).manual_seed(1)), None, TrainerConfig(
+            ckpt_dir=ckpt))
+        fresh.load_checkpoint(step)
+    leaves = list(zip(state_leaves(trainer.state), state_leaves(fresh.state)))
+    differ = [i for i, (a, b) in enumerate(leaves) if not torch.equal(a, b)]
+    if differ or int(fresh.state.opt.step) != step:
+        raise AssertionError(f"checkpoint round trip: leaves {differ} "
+                             f"differ, opt.step {int(fresh.state.opt.step)}")
+    log(f"[trainer] checkpoint round trip on {fresh.device}: {len(leaves)} "
+        f"leaves bitwise equal, opt.step {step}")
 
 
 def _bwd_sets(cfg, seg: np.ndarray) -> list:
@@ -1569,9 +1840,24 @@ def main_bwd():
                                                    seg), {})]
 
 
+def main_trainer():
+    """``--only trainer``: the two attention kernels' build, phase 8, and
+    the backward's record at the shape of the trainer's first batch."""
+    from repro_torch.configs import get_config
+    phase_build(("packed_attention", "packed_attention_bwd"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    path = f"trainer:{ARCH}"
+    counts, seg = phase_trainer()
+    return [_with_paths(_time_packed_attention_bwd(
+        get_config(ARCH), counts["packed_attention_bwd"], seg),
+        {path: counts}, own=path)]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["wkv6", "train", "bwd"],
+    parser.add_argument("--only", choices=["wkv6", "train", "bwd",
+                                           "trainer"],
                         default=None, help="run only this path's builds, "
                         "checks and timing")
     args = parser.parse_args()
@@ -1581,7 +1867,7 @@ def main():
     t0 = time.perf_counter()
     if args.only:
         kernels = {"wkv6": main_wkv6, "train": main_train,
-                   "bwd": main_bwd}[args.only]()
+                   "bwd": main_bwd, "trainer": main_trainer}[args.only]()
         log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {
@@ -1601,6 +1887,7 @@ def main():
     phase_trace_decode(RWKV_ARCH, served)
     del served          # frees the 6.2 GB of bf16 rwkv6-3b weights
     paths[f"train:{ARCH}"], seg = phase_train()
+    paths[f"trainer:{ARCH}"], _ = phase_trainer()
     log(f"[done] launches by path: {paths}")
     kernels = phase_time(paths, seg)
     log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")

@@ -29,6 +29,9 @@ class ModelConfig:
     tied_embeddings: bool = False
     # only so that a MoE config is refused; the MoE layers are not ported
     num_experts: int = 0
+    # read by the data plane's cost model (data/cost_models.py)
+    experts_per_token: int = 0
+    attn_every: int = 0          # hybrid: shared attention every N layers
     # --- rwkv6 ---
     rwkv_head_dim: int = 64
     rwkv_chunk: int = 64

@@ -1,1 +1,1 @@
-"""Serve steps (the training half of the port comes later)."""
+"""The optimizer, the train and serve steps, and the trainer."""

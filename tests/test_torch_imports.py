@@ -66,6 +66,9 @@ def test_cuda_is_required_unless_cpu_is_asked_for():
         from repro_torch.launch import serve
         with pytest.raises(RuntimeError, match="cuda"):
             serve.main(["--reduced"])
+        from repro_torch.launch import train
+        with pytest.raises(RuntimeError, match="cuda"):
+            train.main(["--reduced"])
 
 
 def test_full_width_qwen3_8b_param_count_from_shapes():
