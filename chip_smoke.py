@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only train
     python3 chip_smoke.py --only bwd
     python3 chip_smoke.py --only trainer
+    python3 chip_smoke.py --only vlm
 
 Phases (any failure raises, and the exit code is not 0):
   1. device  — the card's name, count and power limit; no card, no run.
@@ -30,17 +31,26 @@ Phases (any failure raises, and the exit code is not 0):
                ``packed_attention_bwd_ref`` and autograd of
                ``packed_attention_ref``, two calls bitwise equal, and the
                live tiles each CTA reports against
-               ``ref.packed_attention_live_tiles``; the kernels with no backward raising under grad;
+               ``ref.packed_attention_live_tiles``; at paper-llama-12b's
+               heads (36 on 36 of 128) the forward, the backward and
+               flash_decode, and the backward at GQA group 8 with d 128
+               against the float32 autograd oracle; reduced
+               paper-llama-12b with image embeddings, prefill and decode,
+               on the card against the CPU; the kernels with no backward
+               raising under grad;
                qwen3-8b at full width with 2 layers, loss and every
                gradient, kernels against plain attention; reduced qwen3-8b
                memorising one batch through the kernels.
   4. serve   — ``repro_torch.launch.serve`` on qwen3-8b (36 layers, d_model
-               4096) and then on rwkv6-3b (32 layers, d_model 2560), each at
-               its published width and depth with random weights from a
-               seed: batch 4, prompt 512, 32 greedy tokens.  Every kernel's
-               launch count is set to 0 just before each run and read just
-               after; the counts must show the path went through the
-               kernels.
+               4096), on rwkv6-3b (32 layers, d_model 2560) and on the
+               paper's VLM backbone paper-llama-12b (45 layers, d_model
+               4608, 36 heads; 128 of each prompt's 512 positions under
+               image embeddings, whose effect on the prefill is checked),
+               each at its published width and depth with random weights
+               from a seed: batch 4, prompt 512, 32 greedy tokens.  Every
+               kernel's launch count is set to 0 just before each run and
+               read just after; the counts must show the path went through
+               the kernels.
   5. trace   — torch.profiler over one prefill and over decode steps of
                each serve run's own model and cache: the device's busy
                share, the share of the hand-written kernels, and the
@@ -66,18 +76,33 @@ Phases (any failure raises, and the exit code is not 0):
                (100 steps: the loss must close a share of its gap to
                ln(V - 1), the floor on the data plane's uniform tokens)
                and a bitwise checkpoint round trip of its trainer.
+  9. vlm-trainer — paper-llama-12b at full width with 6 of its 45 layers
+               trained by the same ``Trainer`` from a live Overlord under
+               ``hybrid_balance`` (the paper's VLM strategy) for 8 steps,
+               then 4 steps under ``backbone_balance``: counts, losses,
+               step and fetch times, peak memory, per-row sum of squared
+               document lengths, a profiled step, the strict ledger.
+ 10. loss    — phase 8's model trained for 19 steps from phase 8's plane
+               drawing its tokens from 4,096 ids (the model keeps its
+               151,936): the loss must close a share of its gap to
+               ln(4095).
+ 11. example — ``examples/train_e2e_torch.py`` with its defaults (200
+               steps), which checks its own loss.
   7. time    — each kernel at the serving shapes (CUDA events around a
                CUDA-graph replay, and around eager calls), beside its plain
                version, one PyTorch library call where there is one, and
                its bound; the backward kernel at the training shape.
-               Runs after phase 8, so every record has its count there.
+               Runs last, so every record has its count on every path.
 The line before the last is a JSON ``kernels`` record: each kernel's
 ``launches`` is its count on the path the record is timed on
 (``launches_path``: packed_attention and flash_decode on the qwen3-8b
 serve run, wkv6 on the rwkv6-3b one, packed_attention_bwd on the training
 run, 5 steps), and ``launches_by_path`` its count on every path
-(``trainer:qwen3-8b`` is phase 8), each read from its own zeroed run; the
-last line is ``{"ok": true, "device": {...}}``.
+(``trainer:qwen3-8b`` is phase 8, ``trainer:paper-llama-12b`` and
+``trainer:paper-llama-12b:backbone_balance`` phase 9,
+``loss:qwen3-8b:data-vocab-4096`` phase 10,
+``example:train_e2e_torch`` phase 11), each read from its own zeroed run;
+the last line is ``{"ok": true, "device": {...}}``.
 
 ``--only wkv6`` is the short loop for the wkv6 kernel: phase 1, the wkv6
 build, its phase-3 checks (``_check_wkv6``, ``_check_reduced_rwkv``) and
@@ -89,6 +114,12 @@ and the backward kernel's record.
 1, the builds of packed_attention and packed_attention_bwd, phase 8, and
 the backward's record at the shape of the trainer's first batch
 (``launches_path`` ``trainer:qwen3-8b``).
+``--only vlm`` is the short loop for the paper's VLM backbone: phase 1,
+the builds of the three attention kernels, their checks at
+paper-llama-12b's heads and the group-8 backward, the reduced vlm, the
+paper-llama-12b serve run and its traces, phase 9, and the three kernels'
+records at paper-llama-12b's shapes (``launches_path`` its serve run, or
+phase 9 for the backward).
 ``--only bwd`` is the short loop for the backward kernel: phase 1, the
 builds of packed_attention and packed_attention_bwd, the backward checks,
 and the backward's record at the training shape with the live tile pairs
@@ -146,6 +177,25 @@ TRAINER_STEPS, TRAINER_SAMPLES = 8, 96
 # first five's mean to that floor (an update that does nothing closes none
 # of it, give or take the steps' spread of ~0.03 in a gap of ~0.49)
 LAUNCHER_STEPS, LAUNCHER_GAP_SHARE = 100, 0.3
+# the paper's VLM backbone (Table 1): served at full width and depth with
+# image embeddings over image_token_frac of the prompt; trained at full
+# width with VLM_TRAIN_LAYERS of its 45 layers (float32 weights, grads and
+# two moments: 16 B a parameter, 51.5 GB) from the Overlord under
+# hybrid_balance, then VLM_BACKBONE_STEPS steps under backbone_balance
+VLM_ARCH = "paper-llama-12b"
+VLM_PARAMS = 16_470_664_704
+VLM_TRAIN_LAYERS, VLM_TRAIN_PARAMS = 6, 3_220_498_944
+VLM_BACKBONE_STEPS = 4
+# the full-width loss: phase 8's model (vocab 151,936) on phase 8's plane
+# drawing its tokens uniformly from [1, LOSS_VOCAB), within the sources'
+# first pass (LOSS_STEPS < 20 at 96 samples a step); the mean of the last
+# five losses must close LOSS_GAP_SHARE of the gap from the first five's to
+# ln(LOSS_VOCAB - 1).  tools/loss_probe.py picked the lr on the card: in
+# 19 steps lr 0 closes 0.0016 of the gap (the batches' spread), 1e-4 0.155,
+# 3e-4 0.828 (a smooth fall from step 7), 1e-3 0.816 (after a spike to 15.7)
+LOSS_VOCAB, LOSS_STEPS, LOSS_LR, LOSS_GAP_SHARE = 4096, 19, 3e-4, 0.5
+EXAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "examples", "train_e2e_torch.py")
 # the training rows' documents: the text-token log-normal (mu, sigma) of
 # each source of coyo_like_specs(4), the group the JAX package's training
 # launcher reads by default (src/repro/launch/train.py:58), as
@@ -245,6 +295,7 @@ def phase_check():
     _check_wkv6()
     _check_reduced_slice()
     _check_reduced_rwkv()
+    _check_reduced_vlm()
 
 
 def _check_pa(rng, b, h, kh, sq, sk, d, dt, causal, q_seg, kv_seg, what=""):
@@ -307,46 +358,75 @@ def _check_packed_attention():
     # head dims off the 16-byte path: d % 8 != 0 takes the scalar loads
     _check_pa(rng, 2, 4, 2, 130, 130, 100, bf, True, _segs(rng, 2, 130),
               _segs(rng, 2, 130), " scalar path")
+    _check_vlm_packed_attention(rng)
+
+
+def _check_vlm_packed_attention(rng):
+    """paper-llama-12b's heads (MHA, 36 of 128) at s 1000, causal."""
+    seg = _segs(rng, 2, 1000)
+    _check_pa(rng, 2, 36, 36, 1000, 1000, 128, torch.bfloat16, True, seg,
+              seg, f" {VLM_ARCH} heads")
 
 
 def _check_flash_decode():
     """The old cases, then every GQA group size the head chunking meets
     (1, 4, 6 and 16 q heads per kv head), cache_len 1, just past a tile and
     just past a split, and a long cache whose warps walk several tiles
-    (the two-stage ring)."""
-    from repro_torch.kernels import flash_decode, ref
+    (the two-stage ring); then paper-llama-12b's heads."""
     rng = np.random.default_rng(1)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    dtypes = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
-              (torch.bfloat16, torch.bfloat16)]      # (q, cache)
     cases = [(4, 32, 8, 1100, 128, None), (3, 16, 2, 300, 64, None),
              (2, 4, 4, 70, 80, None)]
     for b, h, kh, S, d in [(4, 16, 16, 300, 128), (4, 16, 4, 300, 128),
                            (4, 12, 2, 200, 64), (4, 32, 2, 300, 128),
                            (4, 32, 8, 4096, 128)]:
-        plan = flash_decode.split_plan(b, kh, h // kh, S, sms)
-        lens = [1, flash_decode.TILE_ROWS + 1, plan.split_len + 1, S]
-        cases.append((b, h, kh, S, d, [min(n, S) for n in lens]))
-    for b, h, kh, S, d, lens in cases:
-        plan = flash_decode.split_plan(b, kh, h // kh, S, sms)
-        for q_dt, c_dt in dtypes:
-            q = torch.tensor(rng.normal(size=(b, h, d)), device="cuda").to(
-                q_dt)
-            cache = torch.tensor(rng.normal(size=(2, 2, b, S, kh, d)),
-                                 device="cuda").to(c_dt)  # (kv, layers, ...)
-            kc, vc = cache[0, 1].transpose(1, 2), cache[1, 1].transpose(1, 2)
-            if lens is None:
-                clen = torch.tensor(rng.integers(1, S + 1, size=(b,)),
-                                    dtype=torch.int32, device="cuda")
-                clen[0] = S
-            else:
-                clen = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            got = _launch(flash_decode, flash_decode.flash_decode, q, kc, vc,
-                          clen)
-            exp = ref.flash_decode_ref(q, kc, vc, clen)
-            _check(f"flash_decode b={b} h={h} kh={kh} S={S} d={d} "
-                   f"q={str(q_dt)[6:]} cache={str(c_dt)[6:]} "
-                   f"cache_len={clen.tolist()} {plan}", got, exp, TOL[q_dt])
+        cases.append((b, h, kh, S, d, _edge_lens(b, h, kh, S)))
+    for case in cases:
+        _check_fd(rng, *case)
+    _check_vlm_flash_decode(rng)
+
+
+def _edge_lens(b, h, kh, S) -> list:
+    """cache_len 1, just past a tile, just past a split, and S."""
+    from repro_torch.kernels import flash_decode
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = flash_decode.split_plan(b, kh, h // kh, S, sms)
+    lens = [1, flash_decode.TILE_ROWS + 1, plan.split_len + 1, S]
+    return [min(n, S) for n in lens]
+
+
+def _check_fd(rng, b, h, kh, S, d, lens):
+    """flash_decode against its plain version for three (q, cache) dtype
+    pairs, on one layer's slice of a (kv, layers, b, S, kh, d) cache;
+    ``lens``: the cache lengths, or None for random ones with row 0 full."""
+    from repro_torch.kernels import flash_decode, ref
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = flash_decode.split_plan(b, kh, h // kh, S, sms)
+    for q_dt, c_dt in [(torch.float32, torch.float32),
+                       (torch.bfloat16, torch.float32),
+                       (torch.bfloat16, torch.bfloat16)]:
+        q = torch.tensor(rng.normal(size=(b, h, d)), device="cuda").to(q_dt)
+        cache = torch.tensor(rng.normal(size=(2, 2, b, S, kh, d)),
+                             device="cuda").to(c_dt)  # (kv, layers, ...)
+        kc, vc = cache[0, 1].transpose(1, 2), cache[1, 1].transpose(1, 2)
+        if lens is None:
+            clen = torch.tensor(rng.integers(1, S + 1, size=(b,)),
+                                dtype=torch.int32, device="cuda")
+            clen[0] = S
+        else:
+            clen = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = _launch(flash_decode, flash_decode.flash_decode, q, kc, vc,
+                      clen)
+        exp = ref.flash_decode_ref(q, kc, vc, clen)
+        _check(f"flash_decode b={b} h={h} kh={kh} S={S} d={d} "
+               f"q={str(q_dt)[6:]} cache={str(c_dt)[6:]} "
+               f"cache_len={clen.tolist()} {plan}", got, exp, TOL[q_dt])
+
+
+def _check_vlm_flash_decode(rng):
+    """paper-llama-12b's heads (36 on 36 kv heads of 128) on its serve
+    cache's length, PROMPT + GEN, with ragged cache lengths."""
+    S = PROMPT + GEN
+    _check_fd(rng, BATCH, 36, 36, S, 128, _edge_lens(BATCH, 36, 36, S))
 
 
 def _check_flash_decode_graph():
@@ -405,6 +485,53 @@ def _check_reduced_slice():
             outs.append(torch.cat([logits, dec], 1).cpu())
     _check("reduced qwen3-8b slice, card vs CPU plain", outs[0], outs[1],
            2e-3)
+
+
+def _check_reduced_vlm():
+    """Reduced paper-llama-12b, float32: a prefill whose rows carry image
+    embeddings over image_token_frac of their positions, then decode steps
+    of given tokens from its cache, with the kernels on the card against
+    the plain versions on the CPU, same weights and embeddings; logits to
+    2e-3."""
+    from repro_torch.configs.paper_vlm import reduced
+    from repro_torch.models.model_zoo import build_model
+    cfg = reduced()
+    gpu = build_model(cfg, torch.Generator(device="cuda").manual_seed(4))
+    cpu = build_model(cfg, torch.Generator().manual_seed(4))
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(4)
+    b, s, gen = 2, 64, 8
+    n = int(s * cfg.image_token_frac)
+    tokens = rng.integers(1, cfg.vocab_size, (b, s))
+    embeds = rng.normal(size=(b, n, cfg.d_model)) * 0.02
+    later = rng.integers(1, cfg.vocab_size, (b, gen))   # the decoded tokens
+    outs = []
+    with torch.no_grad():
+        for m in (gpu, cpu):
+            dev = m.device
+            batch = {"tokens": torch.tensor(tokens, dtype=torch.int32,
+                                            device=dev),
+                     "segment_ids": torch.ones((b, s), dtype=torch.int32,
+                                               device=dev),
+                     "positions": torch.arange(
+                         s, dtype=torch.int32, device=dev).repeat(b, 1),
+                     "image_embeds": torch.tensor(embeds, dtype=torch.float32,
+                                                  device=dev),
+                     "image_positions": torch.arange(
+                         n, dtype=torch.int32, device=dev).repeat(b, 1)}
+            logits, kv = m.prefill(batch)
+            cache = m.init_cache(b, s + gen, torch.float32)
+            for name in ("k", "v"):
+                cache[name][:, :, :s] = kv[name]
+            steps = [logits]
+            for t in range(s, s + gen):
+                cur = torch.tensor(later[:, t - s:t - s + 1],
+                                   dtype=torch.int32, device=dev)
+                dec, cache = m.decode_step(cache, cur, t)
+                steps.append(dec)
+            outs.append(torch.cat(steps, 1).cpu())
+    _check(f"reduced {VLM_ARCH} slice with {n} image positions, card vs CPU "
+           "plain: prefill + decode logits", outs[0], outs[1], 2e-3)
 
 
 def _wkv6_inputs(rng, b, s, h, dk, seg=None, scale=0.5):
@@ -743,13 +870,17 @@ def _kernel_live_pairs(live_q, live_kv, q_seg, kv_seg, causal, tag) -> int:
 
 
 def _check_pa_bwd(rng, b, h, kh, sq, sk, d, causal, q_seg, kv_seg, what="",
-                  dout=None):
+                  dout=None, f32_oracle=False):
     """The backward kernel against both plain versions, bf16: the forward's
     lse against ``packed_attention_lse_ref``, then dq, dk, dv against
     ``packed_attention_bwd_ref`` (on the kernel's own out and lse) and
     against autograd of ``packed_attention_ref``; two calls on the same
     inputs must agree bit for bit, and the live tiles the kernel reports
-    must be the mirror's.  ``dout``: drawn like q unless given."""
+    must be the mirror's.  ``dout``: drawn like q unless given.  With
+    ``f32_oracle`` the autograd oracle runs on float32 copies of q, k, v
+    and dout, and the bf16 one is only logged: the bf16 oracle rounds each
+    of its own intermediates (scores, probabilities, dP, dS) to bf16, so
+    at long GQA groups it is the side that drifts."""
     from repro_torch.kernels import packed_attention, packed_attention_bwd
     from repro_torch.kernels import ref
     bf = torch.bfloat16
@@ -775,15 +906,28 @@ def _check_pa_bwd(rng, b, h, kh, sq, sk, d, causal, q_seg, kv_seg, what="",
         raise AssertionError(f"{tag}: two calls differ (not deterministic)")
     plain = ref.packed_attention_bwd_ref(q, k, v, out, lse, dout, q_seg,
                                          kv_seg, causal=causal)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    ref.packed_attention_ref(*leaves, q_seg, kv_seg, causal=causal
-                             ).backward(dout)
+
+    def autograd(dt):
+        leaves = [t.detach().to(dt).requires_grad_() for t in (q, k, v)]
+        ref.packed_attention_ref(*leaves, q_seg, kv_seg, causal=causal
+                                 ).backward(dout.to(dt))
+        return [t.grad for t in leaves]
+    oracle = autograd(torch.float32 if f32_oracle else bf)
+    kind = "float32 autograd" if f32_oracle else "autograd"
+    if f32_oracle:
+        for name, g, a in zip(("dq", "dk", "dv"), got, autograd(bf)):
+            err = (g.float() - a.float()).abs().max().item()
+            log(f"[check] {tag}: {name} vs bf16 autograd of "
+                f"packed_attention_ref (logged, not checked): "
+                f"max_abs_err={err:.3e}, "
+                f"allclose at {TOL[bf]:g}: "
+                f"{torch.allclose(g.float(), a.float(), TOL[bf], TOL[bf])}")
     err = 0.0
-    for name, g, p_, a in zip(("dq", "dk", "dv"), got, plain, leaves):
+    for name, g, p_, a in zip(("dq", "dk", "dv"), got, plain, oracle):
         err = max(err, _check(f"{tag}: {name} vs packed_attention_bwd_ref", g,
                               p_, TOL[bf]),
-                  _check(f"{tag}: {name} vs autograd of "
-                         "packed_attention_ref", g, a.grad, TOL[bf]))
+                  _check(f"{tag}: {name} vs {kind} of packed_attention_ref",
+                         g.to(a.dtype), a, TOL[bf]))
     log(f"[check] {tag}: dq, dk, dv bitwise equal over two calls; "
         f"{pairs} live tile pairs, each CTA's count as the mirror's")
     return err
@@ -827,6 +971,19 @@ def _check_packed_attention_bwd():
                        device="cuda").to(torch.bfloat16)
     _check_pa_bwd(rng, 2, 8, 2, 300, 300, 128, True, seg, seg,
                   " expanded dO", dout=row.expand(2, 8, 300, 128))
+    _check_vlm_packed_attention_bwd(rng)
+
+
+def _check_vlm_packed_attention_bwd(rng):
+    """paper-llama-12b's heads (MHA, 36 of 128) at s 1000, causal; and GQA
+    group 8 at d 128 (32 q heads on 4 kv heads, the shape the dense family
+    queues next), held against the float32 autograd oracle."""
+    seg = _segs(rng, 2, 1000)
+    _check_pa_bwd(rng, 2, 36, 36, 1000, 1000, 128, True, seg, seg,
+                  f" {VLM_ARCH} heads")
+    seg = _segs(rng, 2, 1000)
+    _check_pa_bwd(rng, 2, 32, 4, 1000, 1000, 128, True, seg, seg,
+                  " group 8", f32_oracle=True)
 
 
 def _check_grad_guards():
@@ -1014,7 +1171,25 @@ def phase_serve(arch: str) -> tuple[dict, dict]:
     if out["tokens"].shape != (BATCH, GEN) or not (
             (out["tokens"] >= 0) & (out["tokens"] < cfg.vocab_size)).all():
         raise AssertionError(f"bad greedy tokens {out['tokens'].shape}")
+    if cfg.family == "vlm":
+        _check_image_fusion(arch, out)
     return counts, out
+
+
+def _check_image_fusion(arch: str, out: dict):
+    """The serve run's prompt carried image embeddings: its prefill logits
+    must move when the same prompt is prefilled without them (the launch
+    made here is after the path's counts were read)."""
+    batch = out["batch"]
+    n = batch["image_embeds"].shape[1]
+    text = {k: batch[k] for k in ("tokens", "segment_ids", "positions")}
+    logits, _ = out["prefill"](text)
+    moved = (logits.float() - out["prefill_logits"].float()).abs().max()
+    log(f"[serve] {arch}: {n} of {PROMPT} positions a row under image "
+        f"embeddings (positions 0..{n - 1}); without them the prefill's last "
+        f"logits move by max {moved.item():.4e}")
+    if not moved > 0:
+        raise AssertionError(f"{arch}: the image embeddings changed nothing")
 
 
 # -------------------------------------------------------------- 7. time
@@ -1405,39 +1580,54 @@ def phase_train() -> tuple[dict, np.ndarray]:
 
 
 # ----------------------------------------------------------- 8. trainer
-def _trainer_plane(root: str, cfg):
+def _trainer_plane(root: str, cfg, strategy: str = "backbone_balance",
+                   vocab: int | None = None):
     """The data plane of the trainer phase, from the port's copy of the
     Overlord: the four coyo-like sources the JAX launcher reads by default,
     equal weights, DP ``TRAIN_BATCH`` with one row and one bin a bucket (a
     global batch of TRAIN_BATCH x TRAIN_SEQ), ``TRAINER_SAMPLES`` samples a
-    step, balanced by ``backbone_cost`` of the depth-cut config that trains,
-    a strict delivery ledger, and no launch-time analysis (not ported)."""
+    step, balanced by ``backbone_cost`` of the depth-cut config that trains
+    (under ``hybrid_balance`` also by ViT-2B's encoder cost over the
+    images, as the training launcher passes it), tokens drawn on [1,
+    ``vocab``) (default the model's vocabulary), a strict delivery ledger,
+    and no launch-time analysis (not ported)."""
+    from repro_torch.configs.paper_vlm import VIT_2B
     from repro_torch.core import (ClientPlaceTree, Overlord, OverlordConfig,
                                   StaticSchedule)
-    from repro_torch.data.cost_models import backbone_cost
+    from repro_torch.data.cost_models import backbone_cost, encoder_cost
     from repro_torch.data.sources import coyo_like_specs, materialize_group
     specs = coyo_like_specs(4)
     paths = materialize_group(specs, root)
     tree = ClientPlaceTree([("PP", 1), ("DP", TRAIN_BATCH), ("CP", 1),
                             ("TP", 1)])
+    if strategy == "hybrid_balance":
+        sparams = dict(backbone_costfn=backbone_cost(cfg),
+                       encoder_costfn=encoder_cost(VIT_2B["num_layers"],
+                                                   VIT_2B["d_model"]))
+    else:
+        sparams = dict(costfn=backbone_cost(cfg))
     return Overlord(paths, tree, StaticSchedule({s.name: 1.0 for s in specs}),
                     OverlordConfig(
                         seq_len=TRAIN_SEQ, rows_per_microbatch=1, n_bins=1,
-                        samples_per_step=TRAINER_SAMPLES,
-                        strategy="backbone_balance",
-                        strategy_params=dict(costfn=backbone_cost(cfg),
-                                             broadcast=()),
-                        vocab_size=cfg.vocab_size, ledger=True),
+                        samples_per_step=TRAINER_SAMPLES, strategy=strategy,
+                        strategy_params=dict(sparams, broadcast=()),
+                        vocab_size=vocab or cfg.vocab_size, ledger=True),
                     validate=False)
 
 
+def _sum_l2(seg: np.ndarray) -> np.ndarray:
+    """Each row's sum of squared document lengths (the attention cost the
+    balancer evens out)."""
+    return np.array([float((np.bincount(r[r > 0])[1:].astype(np.int64) ** 2
+                            ).sum()) for r in seg])
+
+
 def _row_stats(seg: np.ndarray) -> str:
-    """Fill, documents, and the rows' sum of squared document lengths (the
-    attention cost the balancer evens out), max over mean."""
-    lens = [np.bincount(r[r > 0])[1:] for r in seg]
-    sq = np.array([float((n.astype(np.int64) ** 2).sum()) for n in lens])
-    return (f"fill={(seg > 0).mean():.4f} documents="
-            f"{sum(int((n > 0).sum()) for n in lens)} sum_l2 per row "
+    """Fill, documents, and the rows' sum of squared document lengths, max
+    over mean."""
+    sq = _sum_l2(seg)
+    docs = sum(int((np.bincount(r[r > 0])[1:] > 0).sum()) for r in seg)
+    return (f"fill={(seg > 0).mean():.4f} documents={docs} sum_l2 per row "
             f"{sq.astype(int).tolist()} max/mean={sq.max() / sq.mean():.4f}")
 
 
@@ -1477,7 +1667,7 @@ def phase_trainer() -> tuple[dict, np.ndarray]:
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import build_model
     from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig, gap_closed
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[trainer] memory_allocated before the phase: "
@@ -1547,8 +1737,8 @@ def phase_trainer() -> tuple[dict, np.ndarray]:
         f"reaches the host, the fetch runs before it, in series) "
         f"{TRAIN_BATCH * TRAIN_SEQ / (step_ms + fetch) * 1e3:.1f} "
         "positions/s")
-    first, last, share = _gap_closed([r["loss"] for r in hist],
-                                     cfg.vocab_size)
+    first, last, share = gap_closed([r["loss"] for r in hist],
+                                    cfg.vocab_size)
     log(f"[trainer] loss: mean of the first 5 {first}, of the last 5 "
         f"{last}, ln(V - 1) {np.log(cfg.vocab_size - 1)}: {share:.4f} of "
         "the gap closed (logged, not checked)")
@@ -1579,29 +1769,21 @@ def phase_trainer() -> tuple[dict, np.ndarray]:
     return counts, segs[0]
 
 
-def _gap_closed(losses, vocab: int) -> tuple[float, float, float]:
-    """The means of the first and last five ``losses``, and the share of
-    the gap from the first mean to ln(``vocab`` - 1) that the last closed:
-    the data plane's tokens are uniform on [1, vocab), so ln(vocab - 1)
-    is the least loss a model can reach on documents it has not seen."""
-    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    return first, last, (first - last) / (first - float(np.log(vocab - 1)))
-
-
 def _check_reduced_launcher():
     """``launch.train.main`` at the reduced size on the card, through the
     kernels, for LAUNCHER_STEPS steps with the JAX launcher's defaults: the
     loss must close LAUNCHER_GAP_SHARE of its gap to ln(V - 1)
-    (``_gap_closed``); then a checkpoint of its trainer loads into a fresh
-    one bitwise."""
+    (``train.trainer.gap_closed``); then a checkpoint of its trainer loads
+    into a fresh one bitwise."""
     from repro_torch.configs.qwen3_8b import reduced
     from repro_torch.launch import train
+    from repro_torch.train.trainer import gap_closed
     cfg = reduced()
     _zero_launch_counts()
     out = train.main(["--reduced", "--steps", str(LAUNCHER_STEPS)])
     counts = _launch_counts()
     losses = [r["loss"] for r in out["history"]]
-    first, last, share = _gap_closed(losses, cfg.vocab_size)
+    first, last, share = gap_closed(losses, cfg.vocab_size)
     log(f"[trainer] reduced launcher on {out['trainer'].device}: losses "
         f"{losses}; mean of the first 5 {first}, of the last 5 {last}, "
         f"ln(V - 1) {np.log(cfg.vocab_size - 1)}: {share:.4f} of the gap "
@@ -1639,6 +1821,197 @@ def _check_checkpoint_round_trip(trainer):
                              f"differ, opt.step {int(fresh.state.opt.step)}")
     log(f"[trainer] checkpoint round trip on {fresh.device}: {len(leaves)} "
         f"leaves bitwise equal, opt.step {step}")
+
+
+def _train_from_plane(model, cfg, strategy: str, steps: int, lr: float,
+                      tag: str, vocab: int | None = None
+                      ) -> tuple[dict, list, list]:
+    """``steps`` steps of ``model`` by the port's ``Trainer`` from a live
+    ``_trainer_plane(strategy, vocab)``, with every kernel's count set to 0
+    just before and read just after; each batch's rows, the step and fetch
+    times, the peak memory, one more step under the profiler with its fetch
+    in the window, and the strict ledger (which raises on a sample lost or
+    delivered twice).  Returns the counts, the records and each batch's
+    segment ids."""
+    import collections
+    import tempfile
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    kept = []
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sources_") as root:
+        ov = _trainer_plane(root, cfg, strategy, vocab)
+        try:
+            ov.start()
+            trainer = Trainer(model, ov, TrainerConfig(
+                steps=steps, log_every=1, opt=AdamWConfig(
+                    peak_lr=lr, warmup_steps=2, total_steps=1000)))
+            assemble = trainer._assemble_global_batch
+
+            def assemble_and_keep(step):
+                batch = assemble(step)
+                kept.append(batch["segment_ids"].cpu().numpy())
+                return batch
+            trainer._assemble_global_batch = assemble_and_keep
+            torch.cuda.synchronize()
+            _zero_launch_counts()
+            hist = trainer.train(steps)
+            counts = _launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+
+            def step_with_fetch():
+                state, metrics = trainer.step_fn(trainer.state,
+                                                 assemble(steps))
+                trainer.state = state
+                return float(metrics["loss"])
+            traced, loss = _profiled(step_with_fetch)
+            ov.step_done(steps, {"loss": loss})
+            report = ov.ledger.verify(strict=True)
+            drops = collections.Counter(
+                ov.ledger.snapshot()["dropped"].values())
+        finally:
+            ov.shutdown()
+            trainer = assemble = assemble_and_keep = step_with_fetch = None
+    for rec, seg in zip(hist, kept):
+        log(f"[{tag}] step {rec['step']} loss={rec['loss']} "
+            f"fetch_s={rec['fetch_s']} step_s={rec['step_s']} "
+            f"grad_norm={rec['grad_norm']} {_row_stats(seg)}")
+    fetch = float(np.mean([r["fetch_s"] for r in hist[1:]])) * 1e3
+    step_ms = float(np.mean([r["step_s"] for r in hist[1:]])) * 1e3
+    balance = [float(_sum_l2(seg).max() / _sum_l2(seg).mean())
+               for seg in kept]
+    log(f"[{tag}] {strategy}, steps 2-{steps} mean: step_ms={step_ms:.3f} "
+        f"fetch_ms={fetch:.3f} (host clock) "
+        f"{TRAIN_BATCH * TRAIN_SEQ / (step_ms + fetch) * 1e3:.1f} "
+        f"positions/s; per-row sum_l2 max/mean by step "
+        f"{[round(x, 4) for x in balance]}, mean {np.mean(balance):.4f}")
+    log(f"[{tag}] {strategy}: max_memory_allocated={peak} B "
+        f"({peak / 2**30:.2f} GiB); launches on the path: {counts}")
+    log(f"[trace] {tag} step with its fetch, {strategy}: {traced}")
+    log(f"[{tag}] {strategy}: ledger {report}; dropped by reason "
+        f"{dict(drops)}")
+    want = {"packed_attention": cfg.num_layers * steps,
+            "packed_attention_bwd": cfg.num_layers * steps,
+            "flash_decode": 0, "wkv6": 0}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts} != expected {want}")
+    losses = [r["loss"] for r in hist]
+    if len(hist) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{tag} losses {losses}")
+    empty = [i for i, seg in enumerate(kept) if not (seg > 0).any()]
+    if len(kept) != steps or empty:
+        raise AssertionError(f"batches without tokens at steps {empty}")
+    return counts, hist, kept
+
+
+def phase_trainer_vlm() -> tuple[dict, np.ndarray]:
+    """paper-llama-12b at full width with VLM_TRAIN_LAYERS of its 45 layers
+    (no image path in training, as in the JAX trainer) trained by the
+    port's ``Trainer`` from a live Overlord under ``hybrid_balance``, the
+    paper's VLM strategy (images balanced over the encoder's consumers by
+    ViT-2B's cost, then whole sequences over DP), for TRAINER_STEPS steps;
+    then VLM_BACKBONE_STEPS steps of the same model from a
+    ``backbone_balance`` plane, so the two strategies' row balance and step
+    time stand side by side; each run starts from the same weights, drawn
+    from one seed.  Returns each run's counts by path, and the first hybrid
+    batch's segment ids."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[vlm-trainer] memory_allocated before the phase: "
+        f"{torch.cuda.memory_allocated()} B")
+    cfg = get_config(VLM_ARCH).replace(num_layers=VLM_TRAIN_LAYERS)
+    runs = {}
+    for strategy, steps in (("hybrid_balance", TRAINER_STEPS),
+                            ("backbone_balance", VLM_BACKBONE_STEPS)):
+        model = build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+        n_params = sum(p.numel() for p in model.parameters())
+        if n_params != VLM_TRAIN_PARAMS:
+            raise AssertionError(f"{n_params} parameters, not "
+                                 f"{VLM_TRAIN_PARAMS}")
+        log(f"[vlm-trainer] {VLM_ARCH} layers={cfg.num_layers} of 45 "
+            f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+            f"params={n_params}; Overlord: coyo_like_specs(4), DP "
+            f"{TRAIN_BATCH} x 1 row x {TRAIN_SEQ}, samples_per_step "
+            f"{TRAINER_SAMPLES}, {strategy}")
+        runs[strategy] = _train_from_plane(model, cfg, strategy, steps, 1e-3,
+                                           "vlm-trainer")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    (hyb, hyb_hist, segs), (bb, bb_hist, bb_segs) = (
+        runs["hybrid_balance"], runs["backbone_balance"])
+    same_rows = all(np.array_equal(a, b) for a, b in zip(segs, bb_segs))
+    same_loss = [a["loss"] for a in hyb_hist[:len(bb_hist)]] == [
+        b["loss"] for b in bb_hist]
+    log(f"[vlm-trainer] the first {len(bb_hist)} steps under the two "
+        f"strategies: rows equal {same_rows}, losses equal {same_loss}")
+    return ({f"trainer:{VLM_ARCH}": hyb,
+             f"trainer:{VLM_ARCH}:backbone_balance": bb}, segs[0])
+
+
+def phase_loss() -> dict:
+    """The full-width loss: phase 8's model (qwen3-8b, TRAIN_LAYERS layers,
+    vocab 151,936) trained by ``Trainer`` for LOSS_STEPS steps at peak lr
+    LOSS_LR from phase 8's plane drawing its tokens on [1, LOSS_VOCAB).
+    The least loss on unseen documents is then ln(LOSS_VOCAB - 1), which
+    the model reaches only by learning which tokens occur; the mean of the
+    last five losses must close LOSS_GAP_SHARE of the gap from the first
+    five's mean to it."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.trainer import gap_closed
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(ARCH).replace(num_layers=TRAIN_LAYERS)
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    counts, hist, _ = _train_from_plane(model, cfg, "backbone_balance",
+                                        LOSS_STEPS, LOSS_LR, "loss",
+                                        vocab=LOSS_VOCAB)
+    losses = [r["loss"] for r in hist]
+    first, last, share = gap_closed(losses, LOSS_VOCAB)
+    log(f"[loss] {ARCH} {cfg.num_layers} layers, model vocab "
+        f"{cfg.vocab_size}, tokens on [1, {LOSS_VOCAB}), peak lr {LOSS_LR}: "
+        f"losses {losses}; mean of the first 5 {first}, of the last 5 "
+        f"{last}, ln({LOSS_VOCAB} - 1) {np.log(LOSS_VOCAB - 1)}: "
+        f"{share:.4f} of the gap closed (at least {LOSS_GAP_SHARE})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not share >= LOSS_GAP_SHARE:
+        raise AssertionError(f"full-width loss closed {share:.4f} of its gap "
+                             f"to ln({LOSS_VOCAB} - 1)")
+    return counts
+
+
+def phase_example() -> dict:
+    """``examples/train_e2e_torch.py`` with its defaults (200 steps) on the
+    card; it raises unless its loss checks pass.  Counts set to 0 just
+    before and read just after."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("train_e2e_torch", EXAMPLE)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    out = example.main([])
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    cfg = out["trainer"].model.cfg
+    steps = len(out["history"])
+    log(f"[example] train_e2e_torch on {out['trainer'].device}: {steps} steps "
+        f"in {wall:.1f}s; mean loss first 10 {out['first']}, last 10 "
+        f"{out['last']}: {out['share']:.4f} of the gap to ln(V - 1) closed; "
+        f"launches {counts}")
+    want = {"packed_attention": cfg.num_layers * steps,
+            "packed_attention_bwd": cfg.num_layers * steps,
+            "flash_decode": 0, "wkv6": 0}
+    if out["trainer"].device.type != "cuda" or counts != want:
+        raise AssertionError(f"the example launched {counts}, not {want}")
+    return counts
 
 
 def _bwd_sets(cfg, seg: np.ndarray) -> list:
@@ -1854,10 +2227,43 @@ def main_trainer():
         {path: counts}, own=path)]
 
 
+def main_vlm():
+    """``--only vlm``: the builds of the three attention kernels, their
+    checks at paper-llama-12b's heads (and the backward's group-8 case),
+    the reduced vlm on the card, the paper-llama-12b serve run and its
+    traces, the vlm trainer phase, and the three kernels' records at
+    paper-llama-12b's shapes (the backward at the trainer's first batch)."""
+    from repro_torch.configs import get_config
+    phase_build(("packed_attention", "packed_attention_bwd", "flash_decode"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _check_vlm_packed_attention(np.random.default_rng(0))
+    _check_vlm_flash_decode(np.random.default_rng(1))
+    _check_vlm_packed_attention_bwd(np.random.default_rng(7))
+    _check_reduced_vlm()
+    paths = {}
+    paths[f"serve:{VLM_ARCH}"], served = phase_serve(VLM_ARCH)
+    phase_trace_prefill(VLM_ARCH, served)
+    phase_trace_decode(VLM_ARCH, served)
+    del served
+    trained, seg = phase_trainer_vlm()
+    paths.update(trained)
+    log(f"[done] launches by path: {paths}")
+    cfg, serve, train = (get_config(VLM_ARCH), f"serve:{VLM_ARCH}",
+                         f"trainer:{VLM_ARCH}")
+    return [_with_paths(_time_packed_attention(
+                cfg, paths[serve]["packed_attention"]), paths, own=serve),
+            _with_paths(_time_flash_decode(
+                cfg, paths[serve]["flash_decode"]), paths, own=serve),
+            _with_paths(_time_packed_attention_bwd(
+                cfg, paths[train]["packed_attention_bwd"], seg), paths,
+                own=train)]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["wkv6", "train", "bwd",
-                                           "trainer"],
+                                           "trainer", "vlm"],
                         default=None, help="run only this path's builds, "
                         "checks and timing")
     args = parser.parse_args()
@@ -1867,7 +2273,8 @@ def main():
     t0 = time.perf_counter()
     if args.only:
         kernels = {"wkv6": main_wkv6, "train": main_train,
-                   "bwd": main_bwd, "trainer": main_trainer}[args.only]()
+                   "bwd": main_bwd, "trainer": main_trainer,
+                   "vlm": main_vlm}[args.only]()
         log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {
@@ -1886,8 +2293,15 @@ def main():
     phase_trace_prefill(RWKV_ARCH, served)
     phase_trace_decode(RWKV_ARCH, served)
     del served          # frees the 6.2 GB of bf16 rwkv6-3b weights
+    paths[f"serve:{VLM_ARCH}"], served = phase_serve(VLM_ARCH)
+    phase_trace_prefill(VLM_ARCH, served)
+    phase_trace_decode(VLM_ARCH, served)
+    del served          # frees the 32.9 GB of bf16 paper-llama-12b weights
     paths[f"train:{ARCH}"], seg = phase_train()
     paths[f"trainer:{ARCH}"], _ = phase_trainer()
+    paths.update(phase_trainer_vlm()[0])
+    paths[f"loss:{ARCH}:data-vocab-{LOSS_VOCAB}"] = phase_loss()
+    paths["example:train_e2e_torch"] = phase_example()
     log(f"[done] launches by path: {paths}")
     kernels = phase_time(paths, seg)
     log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")

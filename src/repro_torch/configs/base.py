@@ -36,6 +36,8 @@ class ModelConfig:
     rwkv_head_dim: int = 64
     rwkv_chunk: int = 64
     rwkv_lora_dim: int = 64
+    # --- vlm ---
+    image_token_frac: float = 0.0  # fraction of sequence that is image embeds
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
@@ -76,7 +78,7 @@ def list_configs() -> list[str]:
 
 
 # Config modules of the archs this port runs.
-_PORTED = ["qwen3_8b", "rwkv6_3b"]
+_PORTED = ["qwen3_8b", "rwkv6_3b", "pixtral_12b", "paper_vlm"]
 
 _LOADED = False
 

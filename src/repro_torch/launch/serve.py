@@ -5,13 +5,19 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --reduced --device cpu --batch 2 --prompt-len 16 --gen 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \
+        --reduced --device cpu --batch 2 --prompt-len 16 --gen 4
 
 The port of ``repro.launch.serve``: the same CLI plus ``--device`` (default
 ``cuda``; without a card that raises unless ``--device cpu`` is given), and
 the same flow for every ported arch: prefill the prompt, then refill a
 fresh float32 cache (the KV cache of a dense model, the shift and WKV
 states of RWKV6) by replaying the prompt through ``decode_step``, then
-decode greedily.  On the card attention and the WKV always run through the
+decode greedily.  A vlm arch's prompt also carries ``image_token_frac`` of
+its positions as image embeddings (the first ones of each row), drawn
+after the tokens from the same numpy generator, as the JAX launcher draws
+them; prefill fuses them, and the replay, as in the JAX launcher, feeds
+the tokens alone.  On the card attention and the WKV always run through the
 CUDA kernels.
 """
 from __future__ import annotations
@@ -66,6 +72,12 @@ def main(argv=None) -> dict:
         "positions": np.broadcast_to(np.arange(s, dtype=np.int32),
                                      (b, s)).copy(),
     }
+    if cfg.family == "vlm":
+        n = int(s * cfg.image_token_frac)
+        batch["image_embeds"] = rng.normal(
+            size=(b, n, cfg.d_model)).astype(np.float32) * 0.02
+        batch["image_positions"] = np.broadcast_to(
+            np.arange(n, dtype=np.int32), (b, n)).copy()
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
     # both steps share one bf16 cast of the weights; the fp32 tree is freed

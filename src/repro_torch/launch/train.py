@@ -3,15 +3,19 @@
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \
         --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch pixtral-12b \
+        --reduced --device cpu --steps 3 --strategy hybrid_balance
 
 The port of ``repro.launch.train``: the same CLI and defaults plus
 ``--device`` (default ``cuda``; without a card that raises unless
 ``--device cpu`` is given).  Everything runs in one process: the data
 plane's actors are threads beside the loop.  The Overlord is built with
 ``validate=False``: its launch-time static analysis is not ported yet
-(ROADMAP.md).  Archs other than the ported dense ones, and the
-``hybrid_balance`` strategy (its encoder cost needs a VLM), raise and point
-at ``ROADMAP.md``.
+(ROADMAP.md).  A vlm arch trains as a dense one, as in the JAX
+package, whose trainer passes no image embeddings; ``hybrid_balance``
+balances with the JAX launcher's encoder cost, ViT-2B's
+(``configs.paper_vlm.VIT_2B``).  Other families raise and point at
+``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from repro_torch.core import (
     ClientPlaceTree, CurriculumSchedule, Overlord, OverlordConfig,
     StaticSchedule,
 )
-from repro_torch.data.cost_models import backbone_cost
+from repro_torch.data.cost_models import backbone_cost, encoder_cost
 from repro_torch.data.sources import coyo_like_specs, materialize_group
 from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import build_model
@@ -65,14 +69,10 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = importlib.import_module(
             "repro_torch.configs." + args.arch.replace("-", "_")).reduced()
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            "to repro_torch yet (only dense archs train); see ROADMAP.md")
-    if args.strategy == "hybrid_balance":
-        raise NotImplementedError(
-            "hybrid_balance needs a VLM's encoder cost, and no VLM is ported "
-            "to repro_torch yet; see ROADMAP.md")
+            "to repro_torch yet (dense and vlm archs train); see ROADMAP.md")
     model = build_model(cfg, torch.Generator(device=device).manual_seed(0))
     print(f"arch={cfg.name} params="
           f"{sum(p.numel() for p in model.parameters()):,}")
@@ -87,8 +87,12 @@ def main(argv=None) -> dict:
     else:
         sched = StaticSchedule({n: 1.0 for n in names})
 
-    sparams = {"broadcast": ("TP",) if args.tp > 1 else (),
-               "costfn": backbone_cost(cfg)}
+    sparams = {"broadcast": ("TP",) if args.tp > 1 else ()}
+    if args.strategy == "hybrid_balance":
+        sparams.update(backbone_costfn=backbone_cost(cfg),
+                       encoder_costfn=encoder_cost(48, 1664))
+    else:
+        sparams.update(costfn=backbone_cost(cfg))
     tree = ClientPlaceTree([("PP", 1), ("DP", args.dp), ("CP", 1),
                             ("TP", args.tp)])
     with tempfile.TemporaryDirectory(prefix="overlord_train_") as root:

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family: the port of
+"""Decoder-only transformer LM, dense and vlm families: the port of
 ``repro.models.transformer``.
 
 Three entry points: ``forward`` (packed batch -> logits), ``prefill``
@@ -6,6 +6,9 @@ Three entry points: ``forward`` (packed batch -> logits), ``prefill``
 against the full cache).  Layers keep the JAX package's stacked leaves
 (leading ``layers`` dim); the scan over them is a Python loop over views.
 Attention runs through the CUDA kernels on the card (``models.attention``).
+A vlm config is the same backbone; its ``forward`` and ``prefill`` write
+the batch's ``image_embeds`` over the token embeddings at
+``image_positions`` when the batch holds them (``_embed_inputs``).
 """
 from __future__ import annotations
 
@@ -61,6 +64,17 @@ def _ffn_block(lp, cfg, h):
     return L.swiglu(lp["mlp"], x)
 
 
+def _embed_inputs(params, cfg, batch):
+    """Token embeddings, with a vlm batch's ``image_embeds`` (b, n, d)
+    written over them at ``image_positions`` (b, n), cast to their dtype."""
+    h = L.embed(params["embed"], batch["tokens"])
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        bi = torch.arange(h.shape[0], device=h.device)[:, None]
+        h = h.index_put((bi, batch["image_positions"].long()),
+                        batch["image_embeds"].to(h.dtype))
+    return h
+
+
 def _unembed(params, cfg, h):
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if cfg.tied_embeddings:
@@ -71,9 +85,10 @@ def _unembed(params, cfg, h):
 # ------------------------------------------------------------------ train
 def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
                                                      torch.Tensor]:
-    """batch: tokens/segment_ids/positions (b, s) int32 tensors.
-    Returns (logits (b, s, vocab), aux_loss scalar: 0 for a dense model)."""
-    h = L.embed(params["embed"], batch["tokens"])
+    """batch: tokens/segment_ids/positions (b, s) int32 tensors [+ vlm
+    ``image_embeds``/``image_positions``].  Returns (logits (b, s, vocab),
+    aux_loss scalar: 0 for a dense model)."""
+    h = _embed_inputs(params, cfg, batch)
     seg = batch["segment_ids"]
     pos = batch["positions"]
     for i in range(cfg.num_layers):
@@ -95,7 +110,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def prefill(params, cfg: ModelConfig, batch):
     """Run the full prompt, return (last-token logits, populated cache)."""
-    h = L.embed(params["embed"], batch["tokens"])
+    h = _embed_inputs(params, cfg, batch)
     seg = batch["segment_ids"]
     pos = batch["positions"]
     kv = None

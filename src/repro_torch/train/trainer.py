@@ -45,6 +45,16 @@ def state_leaves(state: TrainState) -> list[torch.Tensor]:
             + [t for _, t in tree_leaves(state.opt.nu)])
 
 
+def gap_closed(losses, vocab: int, n: int = 5) -> tuple[float, float, float]:
+    """The means of the first and last ``n`` losses, and the share of the
+    gap from the first mean to ln(``vocab`` - 1) that the last closed: the
+    data plane's tokens are uniform on [1, ``vocab``), so ln(``vocab`` - 1)
+    is the least loss a model can reach on documents it has not seen, and
+    an update that does nothing closes none of the gap."""
+    first, last = float(np.mean(losses[:n])), float(np.mean(losses[-n:]))
+    return first, last, (first - last) / (first - float(np.log(vocab - 1)))
+
+
 class Trainer:
     """Single-process trainer consuming OVERLORD batches.
 

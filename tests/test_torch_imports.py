@@ -19,7 +19,9 @@ def _port_modules():
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "examples" /
+                                         "train_e2e_torch.py"]
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():
@@ -84,9 +86,11 @@ def test_full_width_qwen3_8b_param_count_from_shapes():
 def test_unported_archs_raise_and_name_the_roadmap():
     from repro_torch.configs import get_config, list_configs
     from repro_torch.models.model_zoo import model_defs
-    assert list_configs() == ["qwen3-8b", "rwkv6-3b"]
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("qwen3-moe-30b-a3b")
+    assert list_configs() == ["paper-llama-12b", "pixtral-12b", "qwen3-8b",
+                              "rwkv6-3b"]
+    for arch in ("qwen3-moe-30b-a3b", "paper-tmoe-25b", "paper-mixtral-8x7b"):
+        with pytest.raises(KeyError, match="ROADMAP.md"):
+            get_config(arch)
     moe = get_config("qwen3-8b").replace(family="moe", num_experts=8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         model_defs(moe)

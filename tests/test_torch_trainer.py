@@ -40,10 +40,12 @@ STEPS = 3
 
 
 def _overlord(pkg: str, root: str, cost_cfg, vocab: int, seq_len: int = 256,
-              validate: bool = False):
+              validate: bool = False, strategy: str = "backbone_balance"):
     """The trainer phase's data plane from package ``pkg``: four coyo-like
     sources, equal weights, DP 4, one row and one bin per bucket, 96
-    samples a step, a strict ledger, no launch-time analysis."""
+    samples a step, a strict ledger, no launch-time analysis.  Under
+    ``hybrid_balance`` the strategy takes the launchers' costs: the
+    backbone's, and ViT-2B's for the images."""
     import importlib
     core = importlib.import_module(f"{pkg}.core")
     costs = importlib.import_module(f"{pkg}.data.cost_models")
@@ -52,13 +54,17 @@ def _overlord(pkg: str, root: str, cost_cfg, vocab: int, seq_len: int = 256,
     paths = sources.materialize_group(specs, root)
     tree = core.ClientPlaceTree([("PP", 1), ("DP", 4), ("CP", 1),
                                  ("TP", 1)])
+    if strategy == "hybrid_balance":
+        sparams = dict(backbone_costfn=costs.backbone_cost(cost_cfg),
+                       encoder_costfn=costs.encoder_cost(48, 1664))
+    else:
+        sparams = dict(costfn=costs.backbone_cost(cost_cfg))
     return core.Overlord(
         paths, tree, core.StaticSchedule({s.name: 1.0 for s in specs}),
         core.OverlordConfig(
             seq_len=seq_len, rows_per_microbatch=1, n_bins=1,
-            samples_per_step=96, strategy="backbone_balance",
-            strategy_params=dict(costfn=costs.backbone_cost(cost_cfg),
-                                 broadcast=()),
+            samples_per_step=96, strategy=strategy,
+            strategy_params=dict(sparams, broadcast=()),
             vocab_size=vocab, ledger=True), validate=validate)
 
 
@@ -100,11 +106,13 @@ def _synchronous(ov):
     return ov, started
 
 
-def _batches(pkg: str, cost_cfg, steps: int = 4, synchronous=False):
+def _batches(pkg: str, cost_cfg, steps: int = 4, synchronous=False,
+             strategy: str = "backbone_balance"):
     """``steps`` global batches from ``pkg``'s Overlord, its strict
     ``verify()`` report and its ledger's snapshot."""
     with tempfile.TemporaryDirectory() as root:
-        ov, started = _overlord(pkg, root, cost_cfg, 151_936), []
+        ov, started = _overlord(pkg, root, cost_cfg, 151_936,
+                                strategy=strategy), []
         if synchronous:
             ov, started = _synchronous(ov)
         try:
@@ -164,6 +172,24 @@ def test_data_plane_copy_keeps_the_reference_ledger():
     _assert_same_batches(got, ref)
     live, _, _ = _batches("repro_torch", _qwen3_8b_cut("repro_torch"))
     _assert_same_batches(got, live)
+
+
+def test_data_plane_copy_keeps_the_reference_ledger_under_hybrid_balance():
+    """Synchronous planes under ``hybrid_balance``: the batches, the whole
+    strict ``verify()`` report and every sample's record equal the
+    reference's.  (Both packages' strategy reads the backbone cost where
+    it means the encoder's, so its plan is ``backbone_balance``'s; ROADMAP
+    C4.  The copy is held to the reference as it is.)"""
+    ref, ref_report, ref_snap = _batches(
+        "repro", _qwen3_8b_cut("repro"), synchronous=True,
+        strategy="hybrid_balance")
+    got, report, snap = _batches(
+        "repro_torch", _qwen3_8b_cut("repro_torch"), synchronous=True,
+        strategy="hybrid_balance")
+    assert report == ref_report and report["ok"]
+    assert report["through_step"] == 3
+    assert snap == ref_snap
+    _assert_same_batches(got, ref)
 
 
 def _rel(got, exp) -> float:
@@ -287,14 +313,32 @@ def test_launcher_trains_on_the_cpu():
     assert out["trainer"].device.type == "cpu"
 
 
+def test_launcher_trains_under_hybrid_balance_on_the_cpu():
+    from repro_torch.launch import train
+    out = train.main(["--reduced", "--device", "cpu", "--steps", "3",
+                      "--seq-len", "128", "--strategy", "hybrid_balance"])
+    hist = out["history"]
+    assert len(hist) == 3 and np.isfinite([r["loss"] for r in hist]).all()
+    assert out["trainer"].ov.cfg.strategy == "hybrid_balance"
+
+
 @pytest.mark.parametrize("argv", [
     ["--arch", "rwkv6-3b", "--reduced"],
-    ["--reduced", "--strategy", "hybrid_balance"],
-], ids=["ssm-family", "hybrid_balance"])
+], ids=["ssm-family"])
 def test_launcher_refuses_what_is_not_ported(argv):
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train.main(argv + ["--device", "cpu", "--steps", "1"])
+
+
+def test_gap_closed_is_the_share_of_the_gap_to_ln_v_minus_1():
+    from repro_torch.train.trainer import gap_closed
+    floor = float(np.log(255))
+    losses = [floor + 2.0] * 5 + [floor + 0.5] * 5
+    assert gap_closed(losses, 256) == pytest.approx(
+        (floor + 2.0, floor + 0.5, 0.75))
+    assert gap_closed(losses[:5] * 2, 256)[2] == 0.0
+    assert gap_closed(losses, 256, n=10)[2] == 0.0
 
 
 def test_overlord_validate_raises_and_names_the_roadmap():
