@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only bwd
     python3 chip_smoke.py --only trainer
     python3 chip_smoke.py --only vlm
+    python3 chip_smoke.py --only moe
 
 Phases (any failure raises, and the exit code is not 0):
   1. device  — the card's name, count and power limit; no card, no run.
@@ -40,14 +41,28 @@ Phases (any failure raises, and the exit code is not 0):
                raising under grad;
                qwen3-8b at full width with 2 layers, loss and every
                gradient, kernels against plain attention; reduced qwen3-8b
-               memorising one batch through the kernels.
+               memorising one batch through the kernels.  The MoE checks:
+               the three attention kernels at granite-moe-3b-a800m's heads
+               (24 on 8 of 64, GQA group 3) and flash_decode at
+               qwen3-moe-30b-a3b's (32 on 4 of 128); qwen3-moe-30b-a3b's
+               MoE block at full width (4 x 1024 bf16) bitwise equal over
+               two calls, out, aux and every gradient; 2 full-width
+               qwen3-moe-30b-a3b layers, kernels against plain attention
+               with the plain run routed as the kernel run; reduced
+               qwen3-moe-30b-a3b on the card against the CPU, and
+               memorising one batch.
   4. serve   — ``repro_torch.launch.serve`` on qwen3-8b (36 layers, d_model
                4096), on rwkv6-3b (32 layers, d_model 2560) and on the
                paper's VLM backbone paper-llama-12b (45 layers, d_model
                4608, 36 heads; 128 of each prompt's 512 positions under
                image embeddings, whose effect on the prefill is checked),
                each at its published width and depth with random weights
-               from a seed: batch 4, prompt 512, 32 greedy tokens.  Every
+               from a seed: batch 4, prompt 512, 32 greedy tokens; then the
+               MoE family at the same batch: granite-moe-3b-a800m (32
+               layers, 40 experts padded to 48, top 8, tied embeddings) at
+               full width and depth, and qwen3-moe-30b-a3b (128 experts,
+               top 8) at full width with 24 of its 48 layers (a cut for
+               memory: 48 layers drawn in float32 are 120 GB).  Every
                kernel's launch count is set to 0 just before each run and
                read just after; the counts must show the path went through
                the kernels.
@@ -82,6 +97,11 @@ Phases (any failure raises, and the exit code is not 0):
                then 4 steps under ``backbone_balance``: counts, losses,
                step and fetch times, peak memory, per-row sum of squared
                document lengths, a profiled step, the strict ledger.
+ 12. moe-trainer — the paper's tMoE-25B backbone (16 experts, top 2) at
+               full width with 3 of its 42 layers (a cut for memory) trained
+               by the same ``Trainer`` from phase 8's plane for 8 steps:
+               counts, losses and aux losses, step and fetch times, peak
+               memory, a profiled step, the strict ledger.
  10. loss    — phase 8's model trained for 19 steps from phase 8's plane
                drawing its tokens from 4,096 ids (the model keeps its
                151,936): the loss must close a share of its gap to
@@ -100,6 +120,8 @@ serve run, wkv6 on the rwkv6-3b one, packed_attention_bwd on the training
 run, 5 steps), and ``launches_by_path`` its count on every path
 (``trainer:qwen3-8b`` is phase 8, ``trainer:paper-llama-12b`` and
 ``trainer:paper-llama-12b:backbone_balance`` phase 9,
+``trainer:paper-tmoe-25b`` phase 12, ``serve:granite-moe-3b-a800m`` and
+``serve:qwen3-moe-30b-a3b:24-of-48-layers`` the MoE serve runs,
 ``loss:qwen3-8b:data-vocab-4096`` phase 10,
 ``example:train_e2e_torch`` phase 11), each read from its own zeroed run;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -120,6 +142,12 @@ paper-llama-12b's heads and the group-8 backward, the reduced vlm, the
 paper-llama-12b serve run and its traces, phase 9, and the three kernels'
 records at paper-llama-12b's shapes (``launches_path`` its serve run, or
 phase 9 for the backward).
+``--only moe`` is the short loop for the MoE family: phase 1, the builds
+of the three attention kernels, their checks at the MoE heads, the MoE
+checks, the two MoE serve runs and their traces, phase 12, and the
+three kernels' records at the MoE shapes (the forward and the backward
+on phase 12's first batch, ``flash_decode`` at granite-moe-3b-a800m's
+heads).
 ``--only bwd`` is the short loop for the backward kernel: phase 1, the
 builds of packed_attention and packed_attention_bwd, the backward checks,
 and the backward's record at the training shape with the live tile pairs
@@ -186,6 +214,17 @@ VLM_ARCH = "paper-llama-12b"
 VLM_PARAMS = 16_470_664_704
 VLM_TRAIN_LAYERS, VLM_TRAIN_PARAMS = 6, 3_220_498_944
 VLM_BACKBONE_STEPS = 4
+# the MoE family: granite-moe-3b-a800m served at full width and depth;
+# qwen3-moe-30b-a3b served at full width with MOE_SERVE_LAYERS of its 48
+# layers (drawn in float32 before the bf16 cast, each layer is 2.49 GB: 48
+# do not fit one card, 24 and the embeddings take ~62 GB); the paper's
+# tMoE-25B backbone trained at full width with TMOE_TRAIN_LAYERS of its 42
+# layers from phase 8's plane (16 B a parameter: 3 layers and the
+# embeddings are 2.99B parameters, 47.9 GB before the step's activations)
+GRANITE_ARCH, MOE_ARCH, MOE_SERVE_LAYERS = ("granite-moe-3b-a800m",
+                                            "qwen3-moe-30b-a3b", 24)
+TMOE_ARCH, TMOE_TRAIN_LAYERS, TMOE_TRAIN_PARAMS = ("paper-tmoe-25b", 3,
+                                                   2_991_699_968)
 # the full-width loss: phase 8's model (vocab 151,936) on phase 8's plane
 # drawing its tokens uniformly from [1, LOSS_VOCAB), within the sources'
 # first pass (LOSS_STEPS < 20 at 96 samples a step); the mean of the last
@@ -359,6 +398,7 @@ def _check_packed_attention():
     _check_pa(rng, 2, 4, 2, 130, 130, 100, bf, True, _segs(rng, 2, 130),
               _segs(rng, 2, 130), " scalar path")
     _check_vlm_packed_attention(rng)
+    _check_moe_packed_attention(rng)
 
 
 def _check_vlm_packed_attention(rng):
@@ -366,6 +406,15 @@ def _check_vlm_packed_attention(rng):
     seg = _segs(rng, 2, 1000)
     _check_pa(rng, 2, 36, 36, 1000, 1000, 128, torch.bfloat16, True, seg,
               seg, f" {VLM_ARCH} heads")
+
+
+def _check_moe_packed_attention(rng):
+    """granite-moe-3b-a800m's heads (24 q heads on 8 kv heads of 64, GQA
+    group 3) at s 1000, causal, in both dtypes."""
+    for dt in TOL:
+        seg = _segs(rng, 2, 1000)
+        _check_pa(rng, 2, 24, 8, 1000, 1000, 64, dt, True, seg, seg,
+                  f" {GRANITE_ARCH} heads")
 
 
 def _check_flash_decode():
@@ -383,6 +432,7 @@ def _check_flash_decode():
     for case in cases:
         _check_fd(rng, *case)
     _check_vlm_flash_decode(rng)
+    _check_moe_flash_decode(rng)
 
 
 def _edge_lens(b, h, kh, S) -> list:
@@ -429,6 +479,15 @@ def _check_vlm_flash_decode(rng):
     _check_fd(rng, BATCH, 36, 36, S, 128, _edge_lens(BATCH, 36, 36, S))
 
 
+def _check_moe_flash_decode(rng):
+    """granite-moe-3b-a800m's heads (group 3, d 64: four heads a CTA, one
+    idle) and qwen3-moe-30b-a3b's (32 on 4 of 128, group 8) on their serve
+    caches' length, PROMPT + GEN, with ragged cache lengths."""
+    S = PROMPT + GEN
+    for h, kh, d in ((24, 8, 64), (32, 4, 128)):
+        _check_fd(rng, BATCH, h, kh, S, d, _edge_lens(BATCH, h, kh, S))
+
+
 def _check_flash_decode_graph():
     """One flash_decode call captured in a CUDA graph and replayed three
     times with other cache lengths: each replay must match the plain
@@ -455,13 +514,14 @@ def _check_flash_decode_graph():
                ref.flash_decode_ref(q, kc, vc, clen), SERVE_DECODE_TOL)
 
 
-def _check_reduced_slice():
-    """Reduced qwen3-8b, float32: prefill and 24 decode steps with the
-    kernels on the card against the plain versions on the CPU, same
-    weights; logits to 2e-3 (tests/test_models.py)."""
-    from repro_torch.configs.qwen3_8b import reduced
+def _check_reduced_slice(module: str = "qwen3_8b"):
+    """A reduced config (qwen3-8b unless ``module`` names another),
+    float32: prefill and 24 decode steps with the kernels on the card
+    against the plain versions on the CPU, same weights; logits to 2e-3
+    (tests/test_models.py)."""
+    import importlib
     from repro_torch.models.model_zoo import build_model
-    cfg = reduced()
+    cfg = importlib.import_module(f"repro_torch.configs.{module}").reduced()
     gpu = build_model(cfg, torch.Generator(device="cuda").manual_seed(1))
     cpu = build_model(cfg, torch.Generator().manual_seed(1))
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
@@ -483,8 +543,7 @@ def _check_reduced_slice():
                 dec, cache = m.decode_step(cache, batch["tokens"][:, t:t + 1],
                                            t)
             outs.append(torch.cat([logits, dec], 1).cpu())
-    _check("reduced qwen3-8b slice, card vs CPU plain", outs[0], outs[1],
-           2e-3)
+    _check(f"{cfg.name} slice, card vs CPU plain", outs[0], outs[1], 2e-3)
 
 
 def _check_reduced_vlm():
@@ -972,6 +1031,7 @@ def _check_packed_attention_bwd():
     _check_pa_bwd(rng, 2, 8, 2, 300, 300, 128, True, seg, seg,
                   " expanded dO", dout=row.expand(2, 8, 300, 128))
     _check_vlm_packed_attention_bwd(rng)
+    _check_moe_packed_attention_bwd(rng)
 
 
 def _check_vlm_packed_attention_bwd(rng):
@@ -984,6 +1044,14 @@ def _check_vlm_packed_attention_bwd(rng):
     seg = _segs(rng, 2, 1000)
     _check_pa_bwd(rng, 2, 32, 4, 1000, 1000, 128, True, seg, seg,
                   " group 8", f32_oracle=True)
+
+
+def _check_moe_packed_attention_bwd(rng):
+    """granite-moe-3b-a800m's heads (24 on 8 of 64, group 3) at s 1000,
+    causal."""
+    seg = _segs(rng, 2, 1000)
+    _check_pa_bwd(rng, 2, 24, 8, 1000, 1000, 64, True, seg, seg,
+                  f" {GRANITE_ARCH} heads")
 
 
 def _check_grad_guards():
@@ -1073,16 +1141,17 @@ def _check_full_width_grads():
                              "path")
 
 
-def _check_memorise():
-    """Reduced qwen3-8b (head_dim 16) memorises one batch on the card
-    through the kernels: the loss falls below 0.8x its first value in 12
-    steps (tests/test_train.py:50-66)."""
-    from repro_torch.configs.qwen3_8b import reduced
+def _check_memorise(module: str = "qwen3_8b"):
+    """A reduced config (qwen3-8b, head_dim 16, unless ``module`` names
+    another) memorises one batch on the card through the kernels: the loss
+    falls below 0.8x its first value in 12 steps (tests/test_train.py:
+    50-66); a MoE config's aux losses are logged."""
+    import importlib
     from repro_torch.models.model_zoo import build_model
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import (init_train_state,
                                               make_train_step)
-    cfg = reduced()
+    cfg = importlib.import_module(f"repro_torch.configs.{module}").reduced()
     model = build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
     state = init_train_state(model)
     step = make_train_step(model, AdamWConfig(peak_lr=5e-3, warmup_steps=5,
@@ -1091,20 +1160,24 @@ def _check_memorise():
     seg[:, 30:60], seg[:, 60:] = 2, 0
     batch = _lm_batch(np.random.default_rng(3), cfg.vocab_size, seg)
     _zero_launch_counts()
-    losses = []
+    losses, auxes = [], []
     for _ in range(12):
         state, metrics = step(state, batch)
         losses.append(metrics["loss"].item())
+        auxes.append(metrics["aux_loss"].item())
     counts = _launch_counts()
     want = 12 * cfg.num_layers
     ok = (losses[-1] < 0.8 * losses[0] and np.isfinite(losses).all()
+          and np.isfinite(auxes).all()
           and counts["packed_attention"] == want
           and counts["packed_attention_bwd"] == want)
-    log(f"[check] reduced qwen3-8b memorises one batch on the card: losses "
-        f"{[round(x, 4) for x in losses]}, launches {counts} "
+    aux = (f", aux losses {[round(x, 4) for x in auxes]}"
+           if cfg.family == "moe" else "")
+    log(f"[check] {cfg.name} memorises one batch on the card: losses "
+        f"{[round(x, 4) for x in losses]}{aux}, launches {counts} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("reduced qwen3-8b did not memorise its batch "
+        raise AssertionError(f"{cfg.name} did not memorise its batch "
                              "through the kernels")
 
 
@@ -1114,6 +1187,156 @@ def phase_check_train():
     _check_full_width_grads()
     torch.cuda.empty_cache()
     _check_memorise()
+
+
+def _check_moe_block_determinism():
+    """qwen3-moe-30b-a3b's MoE block at full width on 4 x 1024 bf16 tokens
+    (capacity 80 a row, the overflow slot written by every dropped pair):
+    out, aux and the gradients of x and of every leaf bitwise equal over
+    two calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_param
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf = torch.bfloat16
+    # the train step's compute copy: every stacked leaf, the router too, bf16
+    p = {n: init_param(d, gen, torch.float32, "cuda").to(bf).requires_grad_()
+         for n, d in sorted(moe.moe_def(cfg).items())}
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(bf).requires_grad_()
+    dout = torch.randn(x.shape, generator=gen, device="cuda").to(bf)
+    C = moe.row_capacity(cfg, TRAIN_SEQ)
+
+    def run():
+        out, aux = moe.moe_block(p, cfg, x)
+        ((out.float() * dout.float()).sum() + aux).backward()
+        got = [out.detach(), aux.detach(), x.grad] + [p[n].grad for n in p]
+        x.grad = None
+        for t in p.values():
+            t.grad = None
+        return got
+    first, second = run(), run()
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    with torch.no_grad():
+        _, _, ids = moe.route(p["router"], cfg, x)
+        dropped = int((moe.slots(ids, cfg.num_experts, C) == C).sum())
+    log(f"[check] {MOE_ARCH} MoE block, full width, {TRAIN_BATCH}x"
+        f"{TRAIN_SEQ} bf16, capacity {C}: {dropped} of {ids.numel()} "
+        f"(token, expert) pairs dropped; out, aux and the gradients of x, "
+        f"{', '.join(p)} bitwise equal over two calls: {same} "
+        f"{'ok' if all(same) else 'FAIL'}")
+    if not all(same):
+        raise AssertionError("the MoE block is not deterministic")
+
+
+@contextlib.contextmanager
+def _recorded_routing():
+    """The port's MoE top-k records each call's expert ids, in call order,
+    inside this context."""
+    from repro_torch.models import moe
+    own, ids = moe.top_k, []
+
+    def recording(probs, k):
+        vals, idx = own(probs, k)
+        ids.append(idx)
+        return vals, idx
+    moe.top_k = recording
+    try:
+        yield ids
+    finally:
+        moe.top_k = own
+
+
+@contextlib.contextmanager
+def _forced_routing(ids: list):
+    """The port's MoE top-k takes ``ids`` (one tensor a call, in order)
+    in place of its own inside this context, and the weights at them; the
+    yielded list gets, a call, the tokens its own top-k would have sent
+    elsewhere."""
+    from repro_torch.models import moe
+    own, queue, moved = moe.top_k, list(ids), []
+
+    def forced(probs, k):
+        idx = queue.pop(0)
+        mine = own(probs, k)[1]
+        moved.append(int((mine.sort(-1)[0] != idx.sort(-1)[0]).any(-1).sum()))
+        return torch.gather(probs, -1, idx), idx
+    moe.top_k = forced
+    try:
+        yield moved
+    finally:
+        moe.top_k = own
+
+
+def _check_moe_full_width_grads():
+    """qwen3-moe-30b-a3b at full width with 2 layers, one packed batch of
+    2 x 1024: the loss and every leaf's gradient with the kernels against
+    the plain attention on the same weights, the plain run routed as the
+    kernel run (a bf16 rounding of attention flips near-tied experts of a
+    few tokens a layer, which would move whole expert outputs); how many
+    tokens its own top-k would have moved is logged."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.train_step import init_train_state, make_loss_fn
+    cfg = get_config(MOE_ARCH).replace(num_layers=2)
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(5))
+    state = init_train_state(model)
+    rng = np.random.default_rng(5)
+    batch = _lm_batch(rng, cfg.vocab_size,
+                      _data_plane_segs(rng, 2, TRAIN_SEQ), next_token=True)
+    loss_fn = make_loss_fn(model)
+
+    def run():
+        total, _ = loss_fn(state.params, batch)
+        total.backward()
+        grads = {}
+        for path, p in tree_leaves(state.params):
+            grads[path], p.grad = p.grad, None
+        return total.item(), grads
+
+    _zero_launch_counts()
+    with _recorded_routing() as ids:
+        loss_k, grads_k = run()
+    counts = _launch_counts()
+    if counts["packed_attention"] != 2 or counts["packed_attention_bwd"] != 2:
+        raise AssertionError(f"2-layer step launched {counts}")
+    with _plain_attention(), _forced_routing(ids) as moved:
+        loss_p, grads_p = run()
+    if _launch_counts() != counts:
+        raise AssertionError("the plain run launched a kernel")
+    tag = f"{MOE_ARCH} 2 layers full width, kernels vs plain attention"
+    log(f"[check] {tag}: the plain run routed as the kernel run; its own "
+        f"top-k would have moved {moved} of {batch['tokens'].numel()} "
+        "tokens a layer")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[check] {tag}: loss {loss_k:.6f} vs {loss_p:.6f} relative "
+        f"{rel:.3e} (limit {LOSS_REL_TOL:g}) "
+        f"{'ok' if rel <= LOSS_REL_TOL else 'FAIL'}")
+    worst = max(((torch.linalg.vector_norm(grads_k[n] - grads_p[n])
+                  / torch.linalg.vector_norm(grads_p[n])).item(), n)
+                for n in grads_p)
+    log(f"[check] {tag}: worst gradient relative L2 {worst[0]:.3e} "
+        f"({worst[1]}; limit {GRAD_REL_L2:g}) "
+        f"{'ok' if worst[0] <= GRAD_REL_L2 else 'FAIL'}")
+    if rel > LOSS_REL_TOL or not worst[0] <= GRAD_REL_L2:
+        raise AssertionError("full-width MoE gradients disagree with the "
+                             "plain path")
+
+
+def phase_check_moe():
+    """The MoE family's checks: the block's determinism at full width,
+    2 full-width qwen3-moe-30b-a3b layers against plain attention, reduced
+    qwen3-moe-30b-a3b on the card against the CPU, and memorising a
+    batch."""
+    import gc
+    _check_moe_block_determinism()
+    _check_moe_full_width_grads()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_reduced_slice("qwen3_moe_30b_a3b")
+    _check_memorise("qwen3_moe_30b_a3b")
 
 
 # ------------------------------------------------------------- 4. serve
@@ -1132,24 +1355,33 @@ def _zero_launch_counts():
     flash_decode.launches = wkv6.launches = 0
 
 
-def phase_serve(arch: str) -> tuple[dict, dict]:
-    """Serve ``arch`` at full width through ``serve.main``, with every
-    kernel's count set to 0 just before and read just after."""
+def phase_serve(arch: str, layers: int | None = None) -> tuple[dict, dict]:
+    """Serve ``arch`` at full width through ``serve.main``, or with its
+    first ``layers`` layers (a cut for memory) through ``serve.run``, with
+    every kernel's count set to 0 just before and read just after."""
+    import gc
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     cfg = get_config(arch)
+    depth = cfg.num_layers
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()
     t0 = time.perf_counter()
-    out = serve.main(["--arch", arch, "--batch", str(BATCH), "--prompt-len",
-                      str(PROMPT), "--gen", str(GEN)])
+    if layers is None:
+        out = serve.main(["--arch", arch, "--batch", str(BATCH),
+                          "--prompt-len", str(PROMPT), "--gen", str(GEN)])
+    else:
+        cfg = cfg.replace(num_layers=layers)
+        arch = f"{arch}:{layers}-of-{depth}-layers"
+        out = serve.run(cfg, BATCH, PROMPT, GEN, torch.device("cuda"))
     counts = _launch_counts()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    log(f"[serve] {arch} layers={cfg.num_layers} d_model={cfg.d_model} "
-        f"batch={BATCH} prompt={PROMPT} gen={GEN} ({wall:.1f}s in serve.main,"
-        f" weights drawn and cast included)")
+    log(f"[serve] {arch} layers={cfg.num_layers} of {depth} "
+        f"d_model={cfg.d_model} batch={BATCH} prompt={PROMPT} gen={GEN} "
+        f"({wall:.1f}s in serve, weights drawn and cast included)")
     log(f"[serve] {arch} prefill_s={out['prefill_s']:.4f} "
         f"decode_tok_s={out['decode_tok_s']:.2f} "
         f"(decode_s={out['decode_s']:.4f} for {GEN} steps x {BATCH} seqs) "
@@ -1245,22 +1477,37 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _time_packed_attention(cfg, launches: int) -> dict:
+def _time_packed_attention(cfg, launches: int,
+                           train_seg: np.ndarray | None = None) -> dict:
+    """At the serve shape (BATCH x PROMPT, one segment a row), or on a
+    training batch's segment ids ``train_seg`` (causal, as the training
+    forward runs it)."""
     import torch.nn.functional as F
     from repro_torch.kernels import packed_attention, ref
-    b, s, h, kh, d = BATCH, PROMPT, cfg.num_heads, cfg.num_kv_heads, \
-        cfg.resolved_head_dim()
+    h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
     dt = torch.bfloat16
     rng = np.random.default_rng(2)
-    seg = torch.ones((b, s), dtype=torch.int32, device="cuda")  # serve's
+    if train_seg is None:
+        b, s = BATCH, PROMPT
+        seg = torch.ones((b, s), dtype=torch.int32, device="cuda")  # serve's
+        pairs = b * h * s * (s + 1) // 2   # one segment per row, causal
+        shape = "serve shape"
+    else:
+        b, s = train_seg.shape
+        seg = torch.as_tensor(train_seg, device="cuda")
+        pairs = sum(int(n) * (int(n) + 1) // 2 for row in train_seg
+                    for n in np.bincount(row[row > 0])[1:]) * h
+        shape = "training shape"
     sets = [(_bshd(rng, b, s, h, d, dt), _bshd(rng, b, s, kh, d, dt),
              _bshd(rng, b, s, kh, d, dt), seg, seg) for _ in range(4)]
     q, k, v = sets[0][:3]
     got = packed_attention.packed_attention(q, k, v, seg, seg)
-    err = _check("packed_attention serve shape", got,
+    err = _check(f"packed_attention {shape}", got,
                  ref.packed_attention_ref(q, k, v, seg, seg), TOL[dt])
     ms = _time_ms(packed_attention.packed_attention, sets, 40)
     plain_ms = _time_ms(ref.packed_attention_ref, sets, 10)
+    # padding rows attend to padding keys here, so no row is empty (an empty
+    # row would make SDPA's softmax NaN)
     mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device="cuda"))
     mask = mask[None, None] & (seg[:, None, :, None] == seg[:, None, None, :])
 
@@ -1268,7 +1515,6 @@ def _time_packed_attention(cfg, launches: int) -> dict:
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                               enable_gqa=True)
     lib_ms = _time_ms(library, sets, 40)
-    pairs = b * h * s * (s + 1) // 2   # one segment per row, causal
     flops = 4 * d * pairs
     nbytes = _nbytes(q, k, v, got, seg, seg)
     return _record("packed_attention", "packed_attention.cu",
@@ -1828,11 +2074,11 @@ def _train_from_plane(model, cfg, strategy: str, steps: int, lr: float,
                       ) -> tuple[dict, list, list]:
     """``steps`` steps of ``model`` by the port's ``Trainer`` from a live
     ``_trainer_plane(strategy, vocab)``, with every kernel's count set to 0
-    just before and read just after; each batch's rows, the step and fetch
-    times, the peak memory, one more step under the profiler with its fetch
-    in the window, and the strict ledger (which raises on a sample lost or
-    delivered twice).  Returns the counts, the records and each batch's
-    segment ids."""
+    just before and read just after; each batch's rows and aux loss, the
+    step and fetch times, the peak memory, one more step under the profiler
+    with its fetch in the window, and the strict ledger (which raises on a
+    sample lost or delivered twice).  Returns the counts, the records and
+    each batch's segment ids."""
     import collections
     import tempfile
     from repro_torch.train.optimizer import AdamWConfig
@@ -1846,13 +2092,20 @@ def _train_from_plane(model, cfg, strategy: str, steps: int, lr: float,
             trainer = Trainer(model, ov, TrainerConfig(
                 steps=steps, log_every=1, opt=AdamWConfig(
                     peak_lr=lr, warmup_steps=2, total_steps=1000)))
-            assemble = trainer._assemble_global_batch
+            assemble, step_fn, auxes = (trainer._assemble_global_batch,
+                                        trainer.step_fn, [])
 
             def assemble_and_keep(step):
                 batch = assemble(step)
                 kept.append(batch["segment_ids"].cpu().numpy())
                 return batch
+
+            def step_and_keep_aux(state, batch):
+                state, metrics = step_fn(state, batch)
+                auxes.append(metrics["aux_loss"])     # read after the run
+                return state, metrics
             trainer._assemble_global_batch = assemble_and_keep
+            trainer.step_fn = step_and_keep_aux
             torch.cuda.synchronize()
             _zero_launch_counts()
             hist = trainer.train(steps)
@@ -1872,10 +2125,12 @@ def _train_from_plane(model, cfg, strategy: str, steps: int, lr: float,
         finally:
             ov.shutdown()
             trainer = assemble = assemble_and_keep = step_with_fetch = None
-    for rec, seg in zip(hist, kept):
+            step_fn = step_and_keep_aux = None
+    for rec, seg, aux in zip(hist, kept, auxes):
         log(f"[{tag}] step {rec['step']} loss={rec['loss']} "
-            f"fetch_s={rec['fetch_s']} step_s={rec['step_s']} "
-            f"grad_norm={rec['grad_norm']} {_row_stats(seg)}")
+            f"aux_loss={float(aux)} fetch_s={rec['fetch_s']} "
+            f"step_s={rec['step_s']} grad_norm={rec['grad_norm']} "
+            f"{_row_stats(seg)}")
     fetch = float(np.mean([r["fetch_s"] for r in hist[1:]])) * 1e3
     step_ms = float(np.mean([r["step_s"] for r in hist[1:]])) * 1e3
     balance = [float(_sum_l2(seg).max() / _sum_l2(seg).mean())
@@ -1950,6 +2205,39 @@ def phase_trainer_vlm() -> tuple[dict, np.ndarray]:
         f"strategies: rows equal {same_rows}, losses equal {same_loss}")
     return ({f"trainer:{VLM_ARCH}": hyb,
              f"trainer:{VLM_ARCH}:backbone_balance": bb}, segs[0])
+
+
+def phase_trainer_moe() -> tuple[dict, np.ndarray]:
+    """The paper's tMoE-25B backbone (16 experts, top 2, 16 heads of 128
+    with no GQA) at full width with TMOE_TRAIN_LAYERS of its 42 layers,
+    trained by the port's ``Trainer`` from phase 8's live plane under
+    ``backbone_balance`` (whose cost model reads the experts a token runs)
+    for TRAINER_STEPS steps.  Returns the counts and the first batch's
+    segment ids."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe-trainer] memory_allocated before the phase: "
+        f"{torch.cuda.memory_allocated()} B")
+    cfg = get_config(TMOE_ARCH).replace(num_layers=TMOE_TRAIN_LAYERS)
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != TMOE_TRAIN_PARAMS:
+        raise AssertionError(f"{n_params} parameters, not {TMOE_TRAIN_PARAMS}")
+    log(f"[moe-trainer] {TMOE_ARCH} layers={cfg.num_layers} of 42 "
+        f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+        f"experts={cfg.num_experts} top-{cfg.experts_per_token} "
+        f"params={n_params}; Overlord: coyo_like_specs(4), DP {TRAIN_BATCH} "
+        f"x 1 row x {TRAIN_SEQ}, samples_per_step {TRAINER_SAMPLES}, "
+        "backbone_balance")
+    counts, _, segs = _train_from_plane(model, cfg, "backbone_balance",
+                                        TRAINER_STEPS, 1e-3, "moe-trainer")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, segs[0]
 
 
 def phase_loss() -> dict:
@@ -2260,10 +2548,59 @@ def main_vlm():
                 own=train)]
 
 
+MOE_SERVE_PATH = f"serve:{MOE_ARCH}:{MOE_SERVE_LAYERS}-of-48-layers"
+
+
+def phase_serve_moe() -> dict:
+    """granite-moe-3b-a800m at full width and depth, then qwen3-moe-30b-a3b
+    with MOE_SERVE_LAYERS of its 48 layers, each with its prefill and decode
+    traces.  Returns each path's counts."""
+    paths = {}
+    paths[f"serve:{GRANITE_ARCH}"], served = phase_serve(GRANITE_ARCH)
+    phase_trace_prefill(GRANITE_ARCH, served)
+    phase_trace_decode(GRANITE_ARCH, served)
+    del served          # frees the 7.8 GB of bf16 granite-moe weights
+    paths[MOE_SERVE_PATH], served = phase_serve(MOE_ARCH, MOE_SERVE_LAYERS)
+    name = MOE_SERVE_PATH[len("serve:"):]
+    phase_trace_prefill(name, served)
+    phase_trace_decode(name, served)
+    return paths        # frees the 31.2 GB of bf16 qwen3-moe weights
+
+
+def main_moe():
+    """``--only moe``: the builds of the three attention kernels, their
+    checks at the MoE family's heads (granite-moe's group 3, qwen3-moe's
+    group 8 decode), the MoE checks, the two MoE serve runs and their
+    traces, the tMoE trainer phase, and the three kernels' records at the
+    MoE shapes: the forward and the backward on the tMoE trainer's first
+    batch, ``flash_decode`` at granite-moe's heads."""
+    from repro_torch.configs import get_config
+    phase_build(("packed_attention", "packed_attention_bwd", "flash_decode"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _check_moe_packed_attention(np.random.default_rng(0))
+    _check_moe_flash_decode(np.random.default_rng(1))
+    _check_moe_packed_attention_bwd(np.random.default_rng(7))
+    phase_check_moe()
+    paths = phase_serve_moe()
+    train, serve = f"trainer:{TMOE_ARCH}", f"serve:{GRANITE_ARCH}"
+    paths[train], seg = phase_trainer_moe()
+    log(f"[done] launches by path: {paths}")
+    tmoe, granite = get_config(TMOE_ARCH), get_config(GRANITE_ARCH)
+    return [_with_paths(_time_packed_attention(
+                tmoe, paths[train]["packed_attention"], seg), paths,
+                own=train),
+            _with_paths(_time_flash_decode(
+                granite, paths[serve]["flash_decode"]), paths, own=serve),
+            _with_paths(_time_packed_attention_bwd(
+                tmoe, paths[train]["packed_attention_bwd"], seg), paths,
+                own=train)]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["wkv6", "train", "bwd",
-                                           "trainer", "vlm"],
+                                           "trainer", "vlm", "moe"],
                         default=None, help="run only this path's builds, "
                         "checks and timing")
     args = parser.parse_args()
@@ -2274,7 +2611,7 @@ def main():
     if args.only:
         kernels = {"wkv6": main_wkv6, "train": main_train,
                    "bwd": main_bwd, "trainer": main_trainer,
-                   "vlm": main_vlm}[args.only]()
+                   "vlm": main_vlm, "moe": main_moe}[args.only]()
         log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {
@@ -2284,6 +2621,7 @@ def main():
     phase_build()
     phase_check()
     phase_check_train()
+    phase_check_moe()
     paths = {}          # each path's launch counts, from its own zeroed run
     paths[f"serve:{ARCH}"], served = phase_serve(ARCH)
     phase_trace_prefill(ARCH, served)
@@ -2297,9 +2635,11 @@ def main():
     phase_trace_prefill(VLM_ARCH, served)
     phase_trace_decode(VLM_ARCH, served)
     del served          # frees the 32.9 GB of bf16 paper-llama-12b weights
+    paths.update(phase_serve_moe())
     paths[f"train:{ARCH}"], seg = phase_train()
     paths[f"trainer:{ARCH}"], _ = phase_trainer()
     paths.update(phase_trainer_vlm()[0])
+    paths[f"trainer:{TMOE_ARCH}"], _ = phase_trainer_moe()
     paths[f"loss:{ARCH}:data-vocab-{LOSS_VOCAB}"] = phase_loss()
     paths["example:train_e2e_torch"] = phase_example()
     log(f"[done] launches by path: {paths}")

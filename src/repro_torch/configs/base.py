@@ -27,10 +27,11 @@ class ModelConfig:
     rope_theta: float = 1_000_000.0
     norm_eps: float = 1e-6
     tied_embeddings: bool = False
-    # only so that a MoE config is refused; the MoE layers are not ported
+    # --- moe (models/moe.py; experts_per_token is also read by the data
+    # plane's cost model, data/cost_models.py) ---
     num_experts: int = 0
-    # read by the data plane's cost model (data/cost_models.py)
     experts_per_token: int = 0
+    capacity_factor: float = 1.25
     attn_every: int = 0          # hybrid: shared attention every N layers
     # --- rwkv6 ---
     rwkv_head_dim: int = 64
@@ -78,7 +79,8 @@ def list_configs() -> list[str]:
 
 
 # Config modules of the archs this port runs.
-_PORTED = ["qwen3_8b", "rwkv6_3b", "pixtral_12b", "paper_vlm"]
+_PORTED = ["qwen3_8b", "rwkv6_3b", "pixtral_12b", "paper_vlm",
+           "qwen3_moe_30b_a3b", "granite_moe_3b_a800m"]
 
 _LOADED = False
 

@@ -1,11 +1,9 @@
-"""The paper's own backbone configurations (Table 1), as far as ported.
+"""The paper's own backbone configurations (Table 1).
 
 OVERLORD evaluates VLMs = {ViT-1B, ViT-2B} encoder x {Llama-12B, tMoE-25B,
 Mixtral-8x7B} backbone.  The backbones are selectable archs and the
 encoders are described by their cost models only (the encoder frontend is
-a patch-embedding stub: ``image_embeds`` arrive at backbone width).  Only
-the dense backbone, paper-llama-12b, is registered here: the two MoE
-backbones wait for the MoE block (see ROADMAP.md).
+a patch-embedding stub: ``image_embeds`` arrive at backbone width).
 """
 from repro_torch.configs.base import ModelConfig, register
 
@@ -20,6 +18,33 @@ LLAMA_12B = register(ModelConfig(
     vocab_size=128_256,
     image_token_frac=0.25,
     rope_theta=500_000.0,
+))
+
+TMOE_25B = register(ModelConfig(
+    name="paper-tmoe-25b",
+    family="moe",
+    num_layers=42,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=16,
+    d_ff=2048 * 4,
+    vocab_size=128_256,
+    num_experts=16,
+    experts_per_token=2,
+))
+
+MIXTRAL_8X7B = register(ModelConfig(
+    name="paper-mixtral-8x7b",
+    family="moe",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=14_336,
+    vocab_size=32_000,
+    num_experts=8,
+    experts_per_token=2,
+    rope_theta=1_000_000.0,
 ))
 
 # Encoder cost descriptors (#layers, #heads, hidden) for the data-plane cost

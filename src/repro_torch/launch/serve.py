@@ -7,6 +7,9 @@
         --reduced --device cpu --batch 2 --prompt-len 16 --gen 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \
         --reduced --device cpu --batch 2 --prompt-len 16 --gen 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --reduced --device cpu --batch 2 \
+        --prompt-len 16 --gen 4
 
 The port of ``repro.launch.serve``: the same CLI plus ``--device`` (default
 ``cuda``; without a card that raises unless ``--device cpu`` is given), and
@@ -41,11 +44,7 @@ def _sync(device: torch.device):
 
 
 def main(argv=None) -> dict:
-    """Run the server once.  Returns the greedy tokens ``(batch, gen)``, the
-    last prefill and decode logits, the host-clock timings, and the bf16
-    model, its prefill and decode steps, the prompt batch and the filled
-    cache, so a caller can rerun the prefill or go on stepping at the run's
-    own cache length."""
+    """Parse the CLI and serve once (``run``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--reduced", action="store_true")
@@ -60,11 +59,20 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = importlib.import_module(
             "repro_torch.configs." + args.arch.replace("-", "_")).reduced()
+    return run(cfg, args.batch, args.prompt_len, args.gen, device)
+
+
+def run(cfg, b: int, s: int, gen: int, device: torch.device) -> dict:
+    """Serve ``cfg`` once: ``b`` prompts of ``s`` tokens, ``gen`` greedy
+    tokens each.  Returns the greedy tokens ``(b, gen)``, the last prefill
+    and decode logits, the host-clock timings, and the bf16 model, its
+    prefill and decode steps, the prompt batch and the filled cache, so a
+    caller can rerun the prefill or go on stepping at the run's own cache
+    length."""
     generator = torch.Generator(device=device).manual_seed(0)
     model = build_model(cfg, generator, torch.float32)
 
-    b, s = args.batch, args.prompt_len
-    max_len = s + args.gen
+    max_len = s + gen
     rng = np.random.default_rng(0)
     batch = {
         "tokens": rng.integers(1, cfg.vocab_size, (b, s)).astype(np.int32),
@@ -109,13 +117,13 @@ def main(argv=None) -> dict:
         cur = torch.argmax(logits[:, -1:], -1).to(torch.int32)
     _sync(device)
     dt = time.perf_counter() - t0
-    gen = np.stack(out, 1)
-    print(f"decoded {args.gen} tokens x {b} seqs in {dt:.3f}s "
-          f"({args.gen * b / dt:.1f} tok/s)")
-    print("greedy continuations:", gen[:, :8].tolist())
-    return {"tokens": gen, "prefill_logits": prefill_logits,
+    tokens = np.stack(out, 1)
+    print(f"decoded {gen} tokens x {b} seqs in {dt:.3f}s "
+          f"({gen * b / dt:.1f} tok/s)")
+    print("greedy continuations:", tokens[:, :8].tolist())
+    return {"tokens": tokens, "prefill_logits": prefill_logits,
             "logits": logits, "prefill_s": prefill_s, "decode_s": dt,
-            "decode_tok_s": args.gen * b / dt, "model": model,
+            "decode_tok_s": gen * b / dt, "model": model,
             "prefill": prefill, "decode": decode, "batch": batch,
             "cache": cache}
 

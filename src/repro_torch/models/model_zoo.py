@@ -6,9 +6,9 @@ are the JAX tree's key paths joined by ``.`` (``embed.table``,
 weight bridge is one to one.  They are built frozen (``requires_grad``
 off), as serving wants; ``train.train_step.init_train_state`` turns
 ``requires_grad`` on with ``Model.requires_grad_``.  The dense family
-(``models.transformer``) and the ssm family, RWKV6 (``models.rwkv_model``),
-are ported, and the vlm family, which the JAX package builds as a
-transformer; other families raise and point at ``ROADMAP.md``.
+(``models.transformer``), the ssm family, RWKV6 (``models.rwkv_model``),
+and the moe and vlm families, which the JAX package builds as transformers,
+are ported; other families raise and point at ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from repro_torch.models import rwkv_model, transformer
 # family -> the module of its forward / prefill / decode_step / init_cache,
 # and its ParamDef tree
 _FAMILIES = {"dense": (transformer, transformer.lm_defs),
+             "moe": (transformer, transformer.lm_defs),
              "vlm": (transformer, transformer.lm_defs),
              "ssm": (rwkv_model, rwkv_model.rwkv_defs)}
 

@@ -22,6 +22,7 @@ HEADS = "heads"
 KV_HEADS = "kv_heads"
 HEAD_DIM = "head_dim"
 VOCAB = "vocab"
+EXPERT = "expert"
 LAYERS = "layers"
 RWKV_HEADS = "rwkv_heads"
 LORA = "lora"

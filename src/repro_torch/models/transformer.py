@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense and vlm families: the port of
+"""Decoder-only transformer LM, dense, moe and vlm families: the port of
 ``repro.models.transformer``.
 
 Three entry points: ``forward`` (packed batch -> logits), ``prefill``
@@ -8,7 +8,9 @@ against the full cache).  Layers keep the JAX package's stacked leaves
 Attention runs through the CUDA kernels on the card (``models.attention``).
 A vlm config is the same backbone; its ``forward`` and ``prefill`` write
 the batch's ``image_embeds`` over the token embeddings at
-``image_positions`` when the batch holds them (``_embed_inputs``).
+``image_positions`` when the batch holds them (``_embed_inputs``).  A moe
+config's layers hold ``models.moe``'s block in place of the SwiGLU;
+``forward`` sums its aux losses, ``prefill`` and ``decode_step`` drop them.
 """
 from __future__ import annotations
 
@@ -16,22 +18,23 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import decode_attention, segment_attention
 from repro_torch.models.params import EMBED, VOCAB, ParamDef, stacked, tree_map
 
 
 # ------------------------------------------------------------------- defs
 def layer_def(cfg: ModelConfig) -> dict:
-    if cfg.family == "moe" or cfg.num_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE block is not ported to repro_torch yet; "
-            "see ROADMAP.md")
-    return {
+    d = {
         "attn_norm": L.rmsnorm_def(cfg.d_model),
         "attn": L.attention_proj_def(cfg),
         "mlp_norm": L.rmsnorm_def(cfg.d_model),
-        "mlp": L.swiglu_def(cfg.d_model, cfg.d_ff),
     }
+    if cfg.family == "moe" or cfg.num_experts > 0:
+        d["moe"] = moe_lib.moe_def(cfg)
+    else:
+        d["mlp"] = L.swiglu_def(cfg.d_model, cfg.d_ff)
+    return d
 
 
 def lm_defs(cfg: ModelConfig) -> dict:
@@ -60,8 +63,11 @@ def _attn_block(lp, cfg, h, segment_ids, positions):
 
 
 def _ffn_block(lp, cfg, h):
+    """(out, the MoE block's aux loss, or None for the SwiGLU)."""
     x = L.rmsnorm(lp["mlp_norm"], h, cfg.norm_eps)
-    return L.swiglu(lp["mlp"], x)
+    if "moe" in lp:
+        return moe_lib.moe_block(lp["moe"], cfg, x)
+    return L.swiglu(lp["mlp"], x), None
 
 
 def _embed_inputs(params, cfg, batch):
@@ -87,15 +93,19 @@ def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
                                                      torch.Tensor]:
     """batch: tokens/segment_ids/positions (b, s) int32 tensors [+ vlm
     ``image_embeds``/``image_positions``].  Returns (logits (b, s, vocab),
-    aux_loss scalar: 0 for a dense model)."""
+    aux_loss float32 scalar: the layers' MoE aux losses summed, 0 for a
+    dense model)."""
     h = _embed_inputs(params, cfg, batch)
     seg = batch["segment_ids"]
     pos = batch["positions"]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         h = h + _attn_block(lp, cfg, h, seg, pos)[0]
-        h = h + _ffn_block(lp, cfg, h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        ffn, a = _ffn_block(lp, cfg, h)
+        h = h + ffn
+        if a is not None:
+            aux = aux + a
     return _unembed(params, cfg, h), aux
 
 
@@ -124,7 +134,7 @@ def prefill(params, cfg: ModelConfig, batch):
         kv["k"][i] = k
         kv["v"][i] = v
         h = h + attn
-        h = h + _ffn_block(lp, cfg, h)
+        h = h + _ffn_block(lp, cfg, h)[0]
     return _unembed(params, cfg, h[:, -1:, :]), kv
 
 
@@ -153,5 +163,5 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
         cv[:, pos] = v[:, 0]                            # dtype, as astype does
         attn = decode_attention(q, ck, cv, cache_len)
         h = h + L.attn_out_project(lp["attn"], attn)
-        h = h + _ffn_block(lp, cfg, h)
+        h = h + _ffn_block(lp, cfg, h)[0]
     return _unembed(params, cfg, h), cache

@@ -86,14 +86,17 @@ def test_full_width_qwen3_8b_param_count_from_shapes():
 def test_unported_archs_raise_and_name_the_roadmap():
     from repro_torch.configs import get_config, list_configs
     from repro_torch.models.model_zoo import model_defs
-    assert list_configs() == ["paper-llama-12b", "pixtral-12b", "qwen3-8b",
-                              "rwkv6-3b"]
-    for arch in ("qwen3-moe-30b-a3b", "paper-tmoe-25b", "paper-mixtral-8x7b"):
+    assert list_configs() == [
+        "granite-moe-3b-a800m", "paper-llama-12b", "paper-mixtral-8x7b",
+        "paper-tmoe-25b", "pixtral-12b", "qwen3-8b", "qwen3-moe-30b-a3b",
+        "rwkv6-3b"]
+    for arch in ("yi-9b", "granite-20b", "qwen3-32b", "zamba2-7b"):
         with pytest.raises(KeyError, match="ROADMAP.md"):
             get_config(arch)
-    moe = get_config("qwen3-8b").replace(family="moe", num_experts=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model_defs(moe)
+    moe = get_config("qwen3-8b").replace(family="moe", num_experts=8,
+                                         experts_per_token=2)
+    assert set(model_defs(moe)["layers"]) == {"attn_norm", "attn",
+                                              "mlp_norm", "moe"}
     hybrid = get_config("qwen3-8b").replace(family="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         model_defs(hybrid)
