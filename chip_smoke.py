@@ -7,10 +7,12 @@
     python3 chip_smoke.py --only trainer
     python3 chip_smoke.py --only vlm
     python3 chip_smoke.py --only moe
+    python3 chip_smoke.py --only rwkvtrain
+    python3 chip_smoke.py --only dense
 
 Phases (any failure raises, and the exit code is not 0):
   1. device  — the card's name, count and power limit; no card, no run.
-  2. build   — nvcc builds the four CUDA kernels of ``src/repro_torch/
+  2. build   — nvcc builds the five CUDA kernels of ``src/repro_torch/
                kernels/csrc`` (in parallel) into ``build/repro_torch_kernels``.
   3. check   — each kernel against its plain PyTorch version on the card,
                TF32 off: packed_attention and flash_decode at qwen3-8b head
@@ -50,7 +52,20 @@ Phases (any failure raises, and the exit code is not 0):
                qwen3-moe-30b-a3b layers, kernels against plain attention
                with the plain run routed as the kernel run; reduced
                qwen3-moe-30b-a3b on the card against the CPU, and
-               memorising one batch.
+               memorising one batch.  The RWKV6 training checks: the wkv6
+               backward kernel (wkv6_bwd) against ``ref.wkv6_bwd_ref`` at
+               rwkv6-3b's training shape, a ragged length, dk 16 and 32,
+               resets mid-chunk and padding rows, two calls bitwise equal,
+               and against the float64 oracle (autograd of ``wkv6_ref``)
+               at steep decays; ``ops.wkv6`` under grad through both
+               kernels; reduced rwkv6-3b's first training step on the card
+               against the CPU's, and memorising one batch.  The dense
+               family's checks: the attention kernels at qwen3-32b's heads
+               (64 on 8 of 80), granite-20b's (48 on 1 of 128: the
+               backward held to the version that rounds where it rounds,
+               and to SDPA's distance from the float32 oracle) and
+               yi-9b's, the backward's time at granite-20b's heads, and
+               the three reduced configs on the card against the CPU.
   4. serve   — ``repro_torch.launch.serve`` on qwen3-8b (36 layers, d_model
                4096), on rwkv6-3b (32 layers, d_model 2560) and on the
                paper's VLM backbone paper-llama-12b (45 layers, d_model
@@ -62,7 +77,10 @@ Phases (any failure raises, and the exit code is not 0):
                layers, 40 experts padded to 48, top 8, tied embeddings) at
                full width and depth, and qwen3-moe-30b-a3b (128 experts,
                top 8) at full width with 24 of its 48 layers (a cut for
-               memory: 48 layers drawn in float32 are 120 GB).  Every
+               memory: 48 layers drawn in float32 are 120 GB); then the
+               rest of the dense family: yi-9b at full width and depth,
+               granite-20b with 28 of 52 layers and qwen3-32b with 31 of 64
+               (cuts for memory).  Every
                kernel's launch count is set to 0 just before each run and
                read just after; the counts must show the path went through
                the kernels.
@@ -102,6 +120,13 @@ Phases (any failure raises, and the exit code is not 0):
                by the same ``Trainer`` from phase 8's plane for 8 steps:
                counts, losses and aux losses, step and fetch times, peak
                memory, a profiled step, the strict ledger.
+ 13. rwkv-trainer — rwkv6-3b at full width with 24 of its 32 layers (a cut
+               for memory) trained by the same ``Trainer`` from phase 8's
+               plane for 8 steps through the wkv6 forward and backward
+               kernels (each once a layer a step): counts, losses, step and
+               fetch times, peak memory, a profiled step, the strict ledger.
+ 14. dense-trainer — qwen3-32b at full width with 4 of its 64 layers
+               trained the same way: the attention backward at d 80.
  10. loss    — phase 8's model trained for 19 steps from phase 8's plane
                drawing its tokens from 4,096 ids (the model keeps its
                151,936): the loss must close a share of its gap to
@@ -111,17 +136,23 @@ Phases (any failure raises, and the exit code is not 0):
   7. time    — each kernel at the serving shapes (CUDA events around a
                CUDA-graph replay, and around eager calls), beside its plain
                version, one PyTorch library call where there is one, and
-               its bound; the backward kernel at the training shape.
-               Runs last, so every record has its count on every path.
+               its bound; the backward kernel at the training shape; the
+               wkv6 backward on phase 13's first batch.  Runs last, so
+               every record has its count on every path.
 The line before the last is a JSON ``kernels`` record: each kernel's
 ``launches`` is its count on the path the record is timed on
 (``launches_path``: packed_attention and flash_decode on the qwen3-8b
 serve run, wkv6 on the rwkv6-3b one, packed_attention_bwd on the training
-run, 5 steps), and ``launches_by_path`` its count on every path
+run, 5 steps, wkv6_bwd on phase 13), and ``launches_by_path`` its count on
+every path
 (``trainer:qwen3-8b`` is phase 8, ``trainer:paper-llama-12b`` and
 ``trainer:paper-llama-12b:backbone_balance`` phase 9,
 ``trainer:paper-tmoe-25b`` phase 12, ``serve:granite-moe-3b-a800m`` and
 ``serve:qwen3-moe-30b-a3b:24-of-48-layers`` the MoE serve runs,
+``serve:yi-9b``, ``serve:granite-20b:28-of-52-layers`` and
+``serve:qwen3-32b:31-of-64-layers`` the dense ones,
+``trainer:rwkv6-3b:24-of-32-layers`` phase 13,
+``trainer:qwen3-32b:4-of-64-layers`` phase 14,
 ``loss:qwen3-8b:data-vocab-4096`` phase 10,
 ``example:train_e2e_torch`` phase 11), each read from its own zeroed run;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -148,6 +179,14 @@ checks, the two MoE serve runs and their traces, phase 12, and the
 three kernels' records at the MoE shapes (the forward and the backward
 on phase 12's first batch, ``flash_decode`` at granite-moe-3b-a800m's
 heads).
+``--only rwkvtrain`` is the short loop for RWKV6 training: phase 1, the
+builds of wkv6 and wkv6_bwd, the RWKV6 training checks, phase 13, and the
+two wkv6 kernels' records on phase 13's first batch.
+``--only dense`` is the short loop for the rest of the dense family: phase
+1, the builds of the three attention kernels, the dense family's checks,
+its three serve runs and their traces, phase 14, and the three attention
+records at qwen3-32b's shapes (the forward and the backward on phase 14's
+first batch) and ``flash_decode`` at granite-20b's heads.
 ``--only bwd`` is the short loop for the backward kernel: phase 1, the
 builds of packed_attention and packed_attention_bwd, the backward checks,
 and the backward's record at the training shape with the live tile pairs
@@ -225,6 +264,28 @@ GRANITE_ARCH, MOE_ARCH, MOE_SERVE_LAYERS = ("granite-moe-3b-a800m",
                                             "qwen3-moe-30b-a3b", 24)
 TMOE_ARCH, TMOE_TRAIN_LAYERS, TMOE_TRAIN_PARAMS = ("paper-tmoe-25b", 3,
                                                    2_991_699_968)
+# RWKV6 training: rwkv6-3b at full width with RWKV_TRAIN_LAYERS of its 32
+# layers trained from phase 8's plane (a cut for memory: 16 layers peaked at
+# 48.37 GiB and 24 at 67.87 GiB, 2.62 GB a layer of float32 weights, grads,
+# two moments, the bf16 copy and the step's activations at 4 x 1024; 32
+# layers would need ~94 GB)
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_PARAMS = 24, 2_408_666_112
+# the rest of the dense family: yi-9b served at full width and depth;
+# granite-20b (MQA: 48 q heads on one kv head) and qwen3-32b (head_dim 80)
+# served at full width with DENSE_SERVE_LAYERS of their 52 and 64 layers (a
+# cut for memory: drawn in float32 before the bf16 cast, 28.2B and 30.5B
+# parameters are 113 and 122 GB; the cut keeps each near the 15.6B
+# parameters of the qwen3-moe-30b-a3b serve run); qwen3-32b trained from
+# phase 8's plane with QWEN32_TRAIN_LAYERS of its 64 layers (16 B a
+# parameter: 3.36B, 1.56B of them embeddings, are 53.8 GB before the step's
+# activations), so the backward runs at d 80 on a trained path
+YI_ARCH, GRANITE20_ARCH, QWEN32_ARCH = "yi-9b", "granite-20b", "qwen3-32b"
+DENSE_SERVE_LAYERS = {GRANITE20_ARCH: 28, QWEN32_ARCH: 31}
+QWEN32_TRAIN_LAYERS, QWEN32_TRAIN_PARAMS = 4, 3_364_664_960
+RWKV_TRAIN_PATH = f"trainer:{RWKV_ARCH}:{RWKV_TRAIN_LAYERS}-of-32-layers"
+QWEN32_TRAIN_PATH = f"trainer:{QWEN32_ARCH}:{QWEN32_TRAIN_LAYERS}-of-64-layers"
+GRANITE20_SERVE_PATH = (f"serve:{GRANITE20_ARCH}:"
+                        f"{DENSE_SERVE_LAYERS[GRANITE20_ARCH]}-of-52-layers")
 # the full-width loss: phase 8's model (vocab 151,936) on phase 8's plane
 # drawing its tokens uniformly from [1, LOSS_VOCAB), within the sources'
 # first pass (LOSS_STEPS < 20 at 96 samples a step); the mean of the last
@@ -928,8 +989,70 @@ def _kernel_live_pairs(live_q, live_kv, q_seg, kv_seg, causal, tag) -> int:
     return int(live_q.sum())
 
 
+def _tol_share(got, exp, tol) -> tuple[float, int]:
+    """The largest |got - exp| / (tol + tol |exp|) and how many elements
+    pass 1."""
+    ratio = (got.double() - exp.double()).abs() / (tol + tol
+                                                    * exp.double().abs())
+    return ratio.max().item(), int((ratio > 1).sum())
+
+
+def _check_long_group_bwd(tag, q, k, v, out, lse, dout, q_seg, kv_seg,
+                          causal, got) -> float:
+    """A long GQA group (granite-20b's 48 q heads on one kv head): dK and
+    dV sum the group's heads, so the bf16 operands' rounding adds up past
+    the float32 oracles' elementwise tolerance for any bf16 backward.  The
+    kernel is held to ``packed_attention_bwd_bf16_ref`` (the float32 sums
+    rounding P and dS where the kernel rounds them) at the bf16 tolerance,
+    and its distance from the float32 autograd oracle, as a share of that
+    tolerance, to at most the distance of SDPA's backward (autograd of
+    ``F.scaled_dot_product_attention`` on the same bf16 inputs, the rows
+    holding no padding); the float32 plain version's distance is logged."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    bf = torch.bfloat16
+    if not (q_seg > 0).all():
+        raise ValueError("the SDPA yardstick needs rows with no padding")
+    emul = ref.packed_attention_bwd_bf16_ref(q, k, v, out, lse, dout, q_seg,
+                                             kv_seg, causal=causal)
+    plain = ref.packed_attention_bwd_ref(q, k, v, out, lse, dout, q_seg,
+                                         kv_seg, causal=causal)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref.packed_attention_ref(*leaves, q_seg, kv_seg, causal=causal
+                             ).backward(dout.float())
+    mask = q_seg[:, None, :, None] == kv_seg[:, None, None, :]
+    if causal:
+        mask = mask & torch.tril(torch.ones(
+            (q.shape[2], k.shape[2]), dtype=torch.bool, device="cuda"))
+    lib = [t.detach().requires_grad_() for t in (q, k, v)]
+    F.scaled_dot_product_attention(*lib, attn_mask=mask, enable_gqa=True
+                                   ).backward(dout)
+    err = 0.0
+    for i, name in enumerate(("dq", "dk", "dv")):
+        err = max(err, _check(f"{tag}: {name} vs packed_attention_bwd_bf16_"
+                              "ref", got[i], emul[i], TOL[bf]))
+        share = _tol_share(got[i], emul[i], TOL[bf])[0]
+        log(f"[report] {tag}: {name} vs packed_attention_bwd_bf16_ref, worst "
+            f"err/(atol + rtol |ref|) {share:.3f}")
+        f32 = leaves[i].grad
+        ours, past = _tol_share(got[i], f32, TOL[bf])
+        sdpa, sdpa_past = _tol_share(lib[i].grad, f32, TOL[bf])
+        flat, flat_past = _tol_share(plain[i], f32, TOL[bf])
+        ok = ours <= sdpa
+        log(f"[check] {tag}: {name} vs float32 autograd of "
+            f"packed_attention_ref, worst err/(atol + rtol |ref|): kernel "
+            f"{ours:.3f} ({past} of {f32.numel()} past 1), SDPA backward "
+            f"{sdpa:.3f} ({sdpa_past} past), float32 plain version "
+            f"{flat:.3f} ({flat_past} past); kernel at most SDPA's "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: {name} lies farther from the "
+                                 "float32 oracle than SDPA's backward")
+    return err
+
+
 def _check_pa_bwd(rng, b, h, kh, sq, sk, d, causal, q_seg, kv_seg, what="",
-                  dout=None, f32_oracle=False):
+                  dout=None, f32_oracle=False, long_group=False):
     """The backward kernel against both plain versions, bf16: the forward's
     lse against ``packed_attention_lse_ref``, then dq, dk, dv against
     ``packed_attention_bwd_ref`` (on the kernel's own out and lse) and
@@ -939,7 +1062,9 @@ def _check_pa_bwd(rng, b, h, kh, sq, sk, d, causal, q_seg, kv_seg, what="",
     ``f32_oracle`` the autograd oracle runs on float32 copies of q, k, v
     and dout, and the bf16 one is only logged: the bf16 oracle rounds each
     of its own intermediates (scores, probabilities, dP, dS) to bf16, so
-    at long GQA groups it is the side that drifts."""
+    at long GQA groups it is the side that drifts.  With ``long_group``
+    the three gradients are held as ``_check_long_group_bwd`` holds
+    them."""
     from repro_torch.kernels import packed_attention, packed_attention_bwd
     from repro_torch.kernels import ref
     bf = torch.bfloat16
@@ -963,6 +1088,12 @@ def _check_pa_bwd(rng, b, h, kh, sq, sk, d, causal, q_seg, kv_seg, what="",
         q, k, v, out, lse, dout, q_seg, kv_seg, causal=causal)
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"{tag}: two calls differ (not deterministic)")
+    if long_group:
+        err = _check_long_group_bwd(tag, q, k, v, out, lse, dout, q_seg,
+                                    kv_seg, causal, got)
+        log(f"[check] {tag}: dq, dk, dv bitwise equal over two calls; "
+            f"{pairs} live tile pairs, each CTA's count as the mirror's")
+        return err
     plain = ref.packed_attention_bwd_ref(q, k, v, out, lse, dout, q_seg,
                                          kv_seg, causal=causal)
 
@@ -1056,7 +1187,8 @@ def _check_moe_packed_attention_bwd(rng):
 
 def _check_grad_guards():
     """Fault C1: under grad, the kernels with no backward raise on the card
-    (before they build or launch anything)."""
+    (before they build or launch anything), and so does ``wkv6`` asked for
+    its final state, whose gradient the backward kernel does not take."""
     from repro_torch.kernels import ops
     x = torch.zeros((2, 4, 64, 16), device="cuda", requires_grad=True)
     seg = torch.ones((2, 64), dtype=torch.int32, device="cuda")
@@ -1067,7 +1199,8 @@ def _check_grad_guards():
         "decode_attention": lambda: ops.decode_attention(
             x[:, :, 0], x, x, torch.full((2,), 64, dtype=torch.int32,
                                          device="cuda")),
-        "wkv6": lambda: ops.wkv6(x, x, x, x, x[0, 0, :4], reset, chunk=16),
+        "wkv6 return_state": lambda: ops.wkv6(
+            x, x, x, x, x[0, 0, :4], reset, chunk=16, return_state=True),
     }
     for name, call in calls.items():
         try:
@@ -1093,15 +1226,16 @@ def _plain_attention():
         ops.packed_attention = kernel
 
 
-def _check_full_width_grads():
-    """qwen3-8b at full width with 2 layers, one packed batch of 2 x 1024:
-    the loss and every leaf's gradient with the kernels against the plain
-    attention on the same weights (relative L2 <= GRAD_REL_L2)."""
+def _check_full_width_grads(arch: str = ARCH):
+    """``arch`` (qwen3-8b unless named) at full width with 2 layers, one
+    packed batch of 2 x 1024: the loss and every leaf's gradient with the
+    kernels against the plain attention on the same weights (relative L2
+    <= GRAD_REL_L2)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import build_model
     from repro_torch.models.params import tree_leaves
     from repro_torch.train.train_step import init_train_state, make_loss_fn
-    cfg = get_config(ARCH).replace(num_layers=2)
+    cfg = get_config(arch).replace(num_layers=2)
     model = build_model(cfg, torch.Generator(device="cuda").manual_seed(5))
     state = init_train_state(model)
     rng = np.random.default_rng(5)
@@ -1127,13 +1261,13 @@ def _check_full_width_grads():
     if _launch_counts() != counts:
         raise AssertionError("the plain run launched a kernel")
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    log(f"[check] qwen3-8b 2 layers full width, kernels vs plain attention: "
+    log(f"[check] {arch} 2 layers full width, kernels vs plain attention: "
         f"loss {loss_k:.6f} vs {loss_p:.6f} relative {rel:.3e} (limit "
         f"{LOSS_REL_TOL:g}) {'ok' if rel <= LOSS_REL_TOL else 'FAIL'}")
     worst = max(((torch.linalg.vector_norm(grads_k[n] - grads_p[n])
                   / torch.linalg.vector_norm(grads_p[n])).item(), n)
                 for n in grads_p)
-    log(f"[check] qwen3-8b 2 layers full width, kernels vs plain attention: "
+    log(f"[check] {arch} 2 layers full width, kernels vs plain attention: "
         f"worst gradient relative L2 {worst[0]:.3e} ({worst[1]}; limit "
         f"{GRAD_REL_L2:g}) {'ok' if worst[0] <= GRAD_REL_L2 else 'FAIL'}")
     if rel > LOSS_REL_TOL or not worst[0] <= GRAD_REL_L2:
@@ -1166,11 +1300,8 @@ def _check_memorise(module: str = "qwen3_8b"):
         losses.append(metrics["loss"].item())
         auxes.append(metrics["aux_loss"].item())
     counts = _launch_counts()
-    want = 12 * cfg.num_layers
     ok = (losses[-1] < 0.8 * losses[0] and np.isfinite(losses).all()
-          and np.isfinite(auxes).all()
-          and counts["packed_attention"] == want
-          and counts["packed_attention_bwd"] == want)
+          and np.isfinite(auxes).all() and counts == _train_want(cfg, 12))
     aux = (f", aux losses {[round(x, 4) for x in auxes]}"
            if cfg.family == "moe" else "")
     log(f"[check] {cfg.name} memorises one batch on the card: losses "
@@ -1179,6 +1310,204 @@ def _check_memorise(module: str = "qwen3_8b"):
     if not ok:
         raise AssertionError(f"{cfg.name} did not memorise its batch "
                              "through the kernels")
+
+
+# ------------------------------------------------- 3. rwkv training checks
+def _wkv6_bwd_launch(args, dout, chunk: int):
+    """The forward kernel on ``args``, keeping the states entering each
+    chunk, then the backward kernel once: dr, dk, dv, dloga, du."""
+    from repro_torch.kernels import wkv6, wkv6_bwd
+    b, s, h, dk = args[0].shape
+    states = torch.empty((b, h, -(-s // min(chunk, s)), dk, dk),
+                         device="cuda")
+    wkv6.wkv6(*args, chunk=chunk, chunk_states=states)
+    return _launch(wkv6_bwd, wkv6_bwd.wkv6_bwd, *args, dout, states,
+                   chunk=chunk)
+
+
+WKV_GRADS = ("dr", "dk", "dv", "dloga", "du")
+
+
+def _check_wkv6_grads(name: str, got, exp) -> float:
+    """Each gradient against its plain or exact version at atol 5e-5 /
+    rtol 5e-4, with the worst error as a share of atol + rtol |exp|
+    logged; returns the largest max abs error."""
+    err = 0.0
+    for n, g, e in zip(WKV_GRADS, got, exp):
+        log(f"[report] {name}, {n}: {_steep_distance(g, e.double())}")
+        err = max(err, _check(f"{name}, {n}", g.to(e.dtype), e, *WKV_TOL))
+    return err
+
+
+def _wkv6_exact_grads(args, dout):
+    """Autograd of the sequential ``ref.wkv6_ref`` in float64: the exact
+    oracle of the gradients at any decay."""
+    from repro_torch.kernels import ref
+    with torch.enable_grad():
+        leaves = [a.double().requires_grad_() for a in args[:5]]
+        o = ref.wkv6_ref(*leaves, args[5].bool())
+        return torch.autograd.grad(o, leaves, dout.double())
+
+
+def _check_wkv6_bwd():
+    """The wkv6 backward kernel against ``ref.wkv6_bwd_ref`` (autograd of
+    ``ref.wkv6_chunked``, float32) at rwkv6-3b's training shape (4 x 1024,
+    40 heads of 64, the data plane's documents: resets mid-chunk and
+    padding rows, k zeroed on padding as the model zeroes it), at a ragged
+    s, at dk 16 and 32 (resets on sub-chunk edges and mid-chunk, int32
+    resets, strided inputs); bitwise equal over two calls at the training
+    shape; and against the float64 oracle (autograd of ``ref.wkv6_ref``)
+    at the steep decays of ``_steep_wkv6_inputs``, where the float32 plain
+    version's own distance is logged, not checked."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(9)
+
+    def dout_like(a):
+        return torch.tensor(rng.normal(size=tuple(a.shape)),
+                            dtype=torch.float32, device="cuda") * 0.5
+    b, s, h, dk = TRAIN_BATCH, TRAIN_SEQ, 40, 64
+    seg = _data_plane_segs(rng, b, s)
+    args = _wkv6_inputs(rng, b, s, h, dk, seg)
+    dout = dout_like(args[0])
+    name = f"wkv6_bwd b={b} s={s} h={h} dk={dk} chunk=64, data-plane rows"
+    got = _wkv6_bwd_launch(args, dout, 64)
+    _check_wkv6_grads(f"{name} vs wkv6_bwd_ref", got,
+                      ref.wkv6_bwd_ref(*args, dout, chunk=64))
+    again = _wkv6_bwd_launch(args, dout, 64)
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    log(f"[check] {name}: two calls bitwise equal: {same}")
+    if not same:
+        raise AssertionError("wkv6_bwd is not deterministic")
+    del got, again
+    # a ragged s: resets at row starts, mid-chunk segment starts, padding
+    b, s = 2, 1000
+    args = _wkv6_inputs(rng, b, s, h, dk, _segs(rng, b, s))
+    dout = dout_like(args[0])
+    _check_wkv6_grads(f"wkv6_bwd b={b} s={s} h={h} dk={dk} chunk=64 packed "
+                      "vs wkv6_bwd_ref", _wkv6_bwd_launch(args, dout, 64),
+                      ref.wkv6_bwd_ref(*args, dout, chunk=64))
+    # dk 16 and 32: resets on sub-chunk edges and mid-chunk, a ragged last
+    # chunk, int32 resets, (b, h, s, dk) buffers seen as (b, s, h, dk)
+    edges = [(0, 16), (0, 96), (0, 107), (1, 48), (1, 69)]
+    for dk, chunk, s in [(16, 16, 192), (32, 32, 192), (32, 64, 200),
+                         (16, 64, 40)]:
+        b, h = 2, 3
+        args = _wkv6_inputs(rng, b, s, h, dk, scale=1.0)
+        for row, t in edges:
+            if t < s:
+                args[5][row, t] = True
+        if dk == 32:
+            args = tuple(a.transpose(1, 2).contiguous().transpose(1, 2)
+                         for a in args[:4]) + args[4:]
+        if chunk == 16:
+            args = args[:5] + (args[5].to(torch.int32),)
+        dout = dout_like(args[0])
+        name = f"wkv6_bwd b={b} s={s} h={h} dk={dk} chunk={chunk}"
+        got = _wkv6_bwd_launch(args, dout, chunk)
+        _check_wkv6_grads(f"{name} vs wkv6_bwd_ref", got,
+                          ref.wkv6_bwd_ref(*args, dout, chunk=chunk))
+        _check_wkv6_grads(f"{name} vs float64 autograd of wkv6_ref", got,
+                          _wkv6_exact_grads(args, dout))
+    # steep decays at the serve shape, against the float64 oracle
+    for scale in (1.5, 2.5):
+        args = _steep_wkv6_inputs(scale)
+        dout = dout_like(args[0])
+        exact = _wkv6_exact_grads(args, dout)
+        name = f"wkv6_bwd serve shape, loga scale {scale}"
+        _check_wkv6_grads(f"{name} vs float64 autograd of wkv6_ref",
+                          _wkv6_bwd_launch(args, dout, 64), exact)
+        plain = ref.wkv6_bwd_ref(*args, dout, chunk=64)
+        for n, g, e in zip(WKV_GRADS, plain, exact):
+            log(f"[report] {name}, plain wkv6_bwd_ref vs float64 oracle, "
+                f"{n}: {_steep_distance(g, e)}")
+        del exact, plain
+
+
+def _check_wkv6_autograd():
+    """``ops.wkv6`` under grad on the card goes through the forward and the
+    backward kernel (one launch each) and its gradients are
+    ``ref.wkv6_bwd_ref``'s."""
+    from repro_torch.kernels import ops, ref, wkv6, wkv6_bwd
+    rng = np.random.default_rng(10)
+    b, s, h, dk = 2, 256, 8, 64
+    args = _wkv6_inputs(rng, b, s, h, dk, _segs(rng, b, s))
+    dout = torch.tensor(rng.normal(size=(b, s, h, dk)), dtype=torch.float32,
+                        device="cuda")
+    leaves = [a.detach().requires_grad_() for a in args[:5]]
+    before = (wkv6.launches, wkv6_bwd.launches)
+    o = ops.wkv6(*leaves, args[5], chunk=64)
+    o.backward(dout)
+    torch.cuda.synchronize()
+    if (wkv6.launches, wkv6_bwd.launches) != (before[0] + 1, before[1] + 1):
+        raise AssertionError("ops.wkv6 under grad did not launch the forward "
+                             "and the backward kernel once each")
+    _check_wkv6_grads(f"ops.wkv6 autograd b={b} s={s} h={h} dk={dk} vs "
+                      "wkv6_bwd_ref", [t.grad for t in leaves],
+                      ref.wkv6_bwd_ref(*args, dout, chunk=64))
+
+
+def _check_rwkv_first_step():
+    """Reduced rwkv6-3b's first training step on the card through the wkv6
+    kernels against the same step on the CPU (plain ``wkv6_chunked`` under
+    autograd), same weights, the zero-initialised LoRA up-projections given
+    small random values so the data-dependent decay is live: the loss to a
+    relative LOSS_REL_TOL and every leaf's gradient to a relative L2 of
+    GRAD_REL_L2 (bf16 compute on both)."""
+    from repro_torch.configs.rwkv6_3b import reduced
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.train_step import init_train_state, make_loss_fn
+    cfg = reduced()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    gpu = build_model(cfg, gen)
+    for name, prm in gpu.named_parameters():
+        if ".mixB_" in name or name.endswith("loraB_w"):
+            prm.data.normal_(0.0, 0.1, generator=gen)
+    cpu = build_model(cfg, torch.Generator().manual_seed(3))
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    seg = np.ones((4, 64), np.int32)
+    seg[:, 30:60], seg[:, 60:] = 2, 0
+    seg[1, 9:] = 3
+    batch = _lm_batch(np.random.default_rng(3), cfg.vocab_size, seg,
+                      next_token=True)
+    runs = []
+    for m in (gpu, cpu):
+        state = init_train_state(m)
+        _zero_launch_counts()
+        total, _ = make_loss_fn(m)(state.params,
+                                   {k: v.to(m.device) for k, v in
+                                    batch.items()})
+        total.backward()
+        torch.cuda.synchronize()
+        runs.append((total.item(), {p: t.grad.float().cpu() for p, t in
+                                    tree_leaves(state.params)},
+                     _launch_counts()))
+    (loss_k, grads_k, counts), (loss_c, grads_c, cpu_counts) = runs
+    if counts != _train_want(cfg, 1) or cpu_counts != _want():
+        raise AssertionError(f"first step launched {counts} on the card, "
+                             f"{cpu_counts} on the CPU")
+    rel = abs(loss_k - loss_c) / abs(loss_c)
+    worst = max(((torch.linalg.vector_norm(grads_k[n] - grads_c[n])
+                  / torch.linalg.vector_norm(grads_c[n])).item(), n)
+                for n in grads_c)
+    ok = rel <= LOSS_REL_TOL and worst[0] <= GRAD_REL_L2
+    log(f"[check] reduced rwkv6-3b first step, card (kernels) vs CPU "
+        f"(plain): loss {loss_k:.6f} vs {loss_c:.6f} relative {rel:.3e} "
+        f"(limit {LOSS_REL_TOL:g}); worst gradient relative L2 "
+        f"{worst[0]:.3e} ({worst[1]}; limit {GRAD_REL_L2:g}); launches "
+        f"{counts} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("reduced rwkv6-3b's first step on the card "
+                             "disagrees with the CPU's")
+
+
+def phase_check_rwkv_train():
+    _check_wkv6_bwd()
+    _check_wkv6_autograd()
+    _check_grad_guards()
+    torch.cuda.empty_cache()
+    _check_rwkv_first_step()
+    _check_memorise("rwkv6_3b")
 
 
 def phase_check_train():
@@ -1339,20 +1668,106 @@ def phase_check_moe():
     _check_memorise("qwen3_moe_30b_a3b")
 
 
+# ------------------------------------------------ 3. dense family checks
+def _check_dense_attention():
+    """The attention kernels at the heads the rest of the dense family
+    brings, before any of them serves or trains, at s 1000 with packed
+    segments (the backward against the float32 autograd oracle) and on the
+    serve cache's length with ragged cache lengths: qwen3-32b's 64 q heads
+    on 8 kv heads of 80 (the bf16 forward's d-80 instance; the backward's
+    d 80 through its 128-wide instance, whose second 64-column TMA box
+    holds 16 real columns and zeros; flash_decode at d 80), granite-20b's
+    48 q heads on one kv head of 128 (MQA, GQA group 48: the backward's dK
+    and dV sum 48 heads, held as ``_check_long_group_bwd`` holds them;
+    flash_decode's 6 group chunks of 8 heads), and
+    yi-9b's 32 on 4 of 128 (the forward; its backward and flash_decode at
+    group 8 and d 128 are the vlm and MoE checks')."""
+    rng = np.random.default_rng(14)
+    S = PROMPT + GEN
+    for arch, h, kh, d in ((QWEN32_ARCH, 64, 8, 80),
+                           (GRANITE20_ARCH, 48, 1, 128)):
+        what = f" {arch} heads"
+        for dt in TOL:
+            seg = _segs(rng, 2, 1000)
+            _check_pa(rng, 2, h, kh, 1000, 1000, d, dt, True, seg, seg, what)
+        seg = _segs(rng, 2, 1000)
+        if kh == 1:     # one kv head: the rows' padding becomes a segment
+            for row in seg:
+                row[row == 0] = row.max() + 1
+        _check_pa_bwd(rng, 2, h, kh, 1000, 1000, d, True, seg, seg, what,
+                      f32_oracle=True, long_group=kh == 1)
+        _check_fd(rng, BATCH, h, kh, S, d, _edge_lens(BATCH, h, kh, S))
+    for dt in TOL:
+        seg = _segs(rng, 2, 1000)
+        _check_pa(rng, 2, 32, 4, 1000, 1000, 128, dt, True, seg, seg,
+                  f" {YI_ARCH} heads")
+
+
+def _time_granite_bwd():
+    """The backward kernel at granite-20b's heads (one kv head under 48 q
+    heads: each dK/dV CTA sums 48 heads) at the training shape, on the
+    data plane's documents, beside SDPA's backward; logged, not a record
+    (no granite-20b training path runs)."""
+    from repro_torch.configs import get_config
+    seg = _data_plane_segs(np.random.default_rng(TRAIN_SEED), TRAIN_BATCH,
+                           TRAIN_SEQ)
+    rec = _time_packed_attention_bwd(get_config(GRANITE20_ARCH), None, seg)
+    log(f"[time] packed_attention_bwd at {GRANITE20_ARCH}'s heads (48 on 1 "
+        f"of 128), {TRAIN_BATCH} x {TRAIN_SEQ}: ms={rec['ms']:.4f} "
+        f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+        f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})")
+
+
+def phase_check_dense():
+    """The dense family's card checks: the attention kernels at the new
+    heads, the backward's time at granite-20b's, each reduced config's
+    prefill and decode on the card against the CPU, and 2 full-width
+    qwen3-32b layers' loss and gradients, kernels (the backward at d 80)
+    against plain attention."""
+    import gc
+    _check_dense_attention()
+    _time_granite_bwd()
+    for module in ("yi_9b", "granite_20b", "qwen3_32b"):
+        _check_reduced_slice(module)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_full_width_grads(QWEN32_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- 4. serve
+KERNEL_NAMES = ("packed_attention", "packed_attention_bwd", "flash_decode",
+                "wkv6", "wkv6_bwd")
+
+
+def _kernel_modules() -> dict:
+    import importlib
+    return {n: importlib.import_module(f"repro_torch.kernels.{n}")
+            for n in KERNEL_NAMES}
+
+
 def _launch_counts() -> dict:
-    from repro_torch.kernels import (flash_decode, packed_attention,
-                                     packed_attention_bwd, wkv6)
-    return {"packed_attention": packed_attention.launches,
-            "packed_attention_bwd": packed_attention_bwd.launches,
-            "flash_decode": flash_decode.launches, "wkv6": wkv6.launches}
+    return {n: m.launches for n, m in _kernel_modules().items()}
 
 
 def _zero_launch_counts():
-    from repro_torch.kernels import (flash_decode, packed_attention,
-                                     packed_attention_bwd, wkv6)
-    packed_attention.launches = packed_attention_bwd.launches = 0
-    flash_decode.launches = wkv6.launches = 0
+    for m in _kernel_modules().values():
+        m.launches = 0
+
+
+def _want(**counts) -> dict:
+    """Every kernel's expected count on a path: ``counts``, else 0."""
+    return {n: counts.get(n, 0) for n in KERNEL_NAMES}
+
+
+def _train_want(cfg, steps: int) -> dict:
+    """The counts of ``steps`` training steps of ``cfg``: its forward and
+    backward kernel once a layer a step."""
+    n = cfg.num_layers * steps
+    if cfg.family == "ssm":
+        return _want(wkv6=n, wkv6_bwd=n)
+    return _want(packed_attention=n, packed_attention_bwd=n)
 
 
 def phase_serve(arch: str, layers: int | None = None) -> tuple[dict, dict]:
@@ -1390,11 +1805,9 @@ def phase_serve(arch: str, layers: int | None = None) -> tuple[dict, dict]:
     log(f"[serve] {arch} launches on the path: {counts}")
     L = cfg.num_layers
     if cfg.family == "ssm":     # the WKV kernel once per layer, in prefill
-        want = {"packed_attention": 0, "packed_attention_bwd": 0,
-                "flash_decode": 0, "wkv6": L}
+        want = _want(wkv6=L)
     else:
-        want = {"packed_attention": L, "packed_attention_bwd": 0,
-                "flash_decode": L * (PROMPT + GEN), "wkv6": 0}
+        want = _want(packed_attention=L, flash_decode=L * (PROMPT + GEN))
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
     for key in ("prefill_logits", "logits"):
@@ -1639,13 +2052,17 @@ def _wkv6_flops(reset, h: int, dk: int, chunk: int, sub: int = 16) -> int:
     return h * per_head
 
 
-def _time_wkv6(cfg, launches) -> dict:
+def _time_wkv6(cfg, launches, train_seg: np.ndarray | None = None) -> dict:
+    """At the serve shape (BATCH x PROMPT, one segment a row), or on a
+    training batch's segment ids ``train_seg``."""
     from repro_torch.kernels import ref, wkv6
-    b, s, dk, chunk = BATCH, PROMPT, cfg.rwkv_head_dim, cfg.rwkv_chunk
+    dk, chunk = cfg.rwkv_head_dim, cfg.rwkv_chunk
     h = cfg.d_model // dk
     rng = np.random.default_rng(6)
-    serve_seg = np.ones((b, s), np.int32)          # one segment per row
-    sets = [_wkv6_inputs(rng, b, s, h, dk, serve_seg) for _ in range(4)]
+    seg = np.ones((BATCH, PROMPT), np.int32) if train_seg is None \
+        else train_seg                             # serve: one segment a row
+    b, s = seg.shape
+    sets = [_wkv6_inputs(rng, b, s, h, dk, seg) for _ in range(4)]
 
     def kernel(*a):
         return wkv6.wkv6(*a, chunk=chunk, return_state=True)
@@ -1654,8 +2071,9 @@ def _time_wkv6(cfg, launches) -> dict:
         return ref.wkv6_chunked(*a[:5], chunk=chunk, reset=a[5],
                                 return_state=True)
     got, exp = kernel(*sets[0]), plain(*sets[0])
-    err = max(_check("wkv6 serve shape, o", got[0], exp[0], *WKV_TOL),
-              _check("wkv6 serve shape, final state", got[1], exp[1],
+    shape = "serve shape" if train_seg is None else "training shape"
+    err = max(_check(f"wkv6 {shape}, o", got[0], exp[0], *WKV_TOL),
+              _check(f"wkv6 {shape}, final state", got[1], exp[1],
                      *WKV_TOL))
     ms = _time_ms(kernel, sets, 40)
     plain_ms = _time_ms(plain, sets, 8)
@@ -1667,11 +2085,94 @@ def _time_wkv6(cfg, launches) -> dict:
                    no_library="no single PyTorch call computes WKV6")
 
 
+def _wkv6_bwd_flops(reset, h: int, dk: int, chunk: int) -> int:
+    """Operations the WKV6 gradients need on these resets, as
+    ``ref.wkv6_bwd_two_pass`` forms them (an exp counts as one, a
+    multiply-add as two).  Per head and chunk:
+      * each pair s < t with no reset in (s, t]: its weight, dk (a running
+        product), A[t,s], 4 dk, dA[t,s], 2 dv, and the pair terms of dr,
+        dk and dv, 2 dk + 2 dk + 2 dv;
+      * each token: d = exp(loga) and the decays Pq, Pk, 3 dk, B and dB,
+        4 dk + 2 dv, the bonus terms of dr, dk, dv, 6 dk, and dloga's
+        scans, 6 dk;
+      * each token with no reset before it in the chunk: dO S^T and its
+        decay, 2 dk dv + dk, and r_q^T dO into the state's gradient,
+        2 dk dv;
+      * each token with no reset after it: v dS^T and k_hat dS, 4 dk dv;
+      * each chunk with no reset: dec dS and dS . S, 3 dk dv;
+      * du: 3 dk a token."""
+    b, s = reset.shape
+    L = min(chunk, s)
+    n = -(-s // L) * L
+    dev = reset.device
+    flags = torch.zeros((b, n), dtype=torch.int64, device=dev)
+    flags[:, :s] = reset.to(torch.int64)
+    valid = (torch.arange(n, device=dev) < s).view(1, -1, L)
+    R = flags.view(b, -1, L).cumsum(-1)
+    pos = torch.arange(L, device=dev)
+    pairs = int(((R[..., :, None] == R[..., None, :])
+                 & (pos[:, None] > pos[None, :]) & valid[..., :, None]).sum())
+    q_rows = int(((R == 0) & valid).sum())
+    k_rows = int(((R == R[..., -1:]) & valid).sum())
+    live_chunks = int((R[..., -1] == 0).sum())
+    dv = dk
+    per_head = (pairs * (9 * dk + 4 * dv)
+                + b * s * (22 * dk + 2 * dv)
+                + q_rows * (4 * dk * dv + dk)
+                + k_rows * 4 * dk * dv
+                + live_chunks * 3 * dk * dv)
+    return h * per_head
+
+
+def _time_wkv6_bwd(cfg, launches, seg: np.ndarray) -> dict:
+    """The wkv6 backward kernel at rwkv6-3b's training shape (TRAIN_BATCH x
+    TRAIN_SEQ, 40 heads of 64, the resets of segment ids ``seg``, the
+    rwkv trainer's first batch) beside its plain version (autograd of
+    ``ref.wkv6_chunked``, eager: autograd is not captured in a graph).
+    No single PyTorch call computes it.  Bound: each input (r, k, v, loga,
+    u, the resets, dO and the forward's chunk states) read once and each
+    gradient written once."""
+    from repro_torch.kernels import ref, wkv6, wkv6_bwd
+    b, s = seg.shape
+    dk, chunk = cfg.rwkv_head_dim, cfg.rwkv_chunk
+    h = cfg.d_model // dk
+    rng = np.random.default_rng(13)
+    sets = []
+    for _ in range(4):
+        args = _wkv6_inputs(rng, b, s, h, dk, seg)
+        states = torch.empty((b, h, -(-s // chunk), dk, dk), device="cuda")
+        wkv6.wkv6(*args, chunk=chunk, chunk_states=states)
+        dout = torch.tensor(rng.normal(size=(b, s, h, dk)),
+                            dtype=torch.float32, device="cuda") * 0.5
+        sets.append((*args, dout, states))
+
+    def kernel(*a):
+        return wkv6_bwd.wkv6_bwd(*a, chunk=chunk)
+
+    def plain(*a):
+        return ref.wkv6_bwd_ref(*a[:7], chunk=chunk)
+    got = kernel(*sets[0])
+    err = _check_wkv6_grads("wkv6_bwd training shape vs wkv6_bwd_ref", got,
+                            plain(*sets[0]))
+    ms = _time_ms(kernel, sets, 20)
+    plain_ms = _time_eager_ms(plain, sets, 4)
+    nbytes = _nbytes(*sets[0], *got)
+    flops = _wkv6_bwd_flops(sets[0][5], h, dk, chunk)
+    return _record("wkv6_bwd", "wkv6_bwd.cu",
+                   "none: JAX differentiates wkv6_chunked, "
+                   "src/repro/models/rwkv.py:112", launches, err, ms,
+                   (plain_ms, plain_ms), None, nbytes, flops,
+                   PEAK_FLOPS[torch.float32],
+                   no_library="no single PyTorch call computes the WKV6 "
+                   "gradients")
+
+
 # the path each record is timed on; its ``launches`` is that path's count
 RECORD_PATH = {"packed_attention": f"serve:{ARCH}",
                "flash_decode": f"serve:{ARCH}",
                "wkv6": f"serve:{RWKV_ARCH}",
-               "packed_attention_bwd": f"train:{ARCH}"}
+               "packed_attention_bwd": f"train:{ARCH}",
+               "wkv6_bwd": RWKV_TRAIN_PATH}
 
 
 def _with_paths(rec: dict, paths: dict, own: str | None = None) -> dict:
@@ -1687,7 +2188,8 @@ def _with_paths(rec: dict, paths: dict, own: str | None = None) -> dict:
     return rec
 
 
-def phase_time(paths: dict, train_seg: np.ndarray) -> list:
+def phase_time(paths: dict, train_seg: np.ndarray,
+               rwkv_seg: np.ndarray) -> list:
     from repro_torch.configs import get_config
     qwen, rwkv = get_config(ARCH), get_config(RWKV_ARCH)
     torch.cuda.empty_cache()
@@ -1697,7 +2199,8 @@ def phase_time(paths: dict, train_seg: np.ndarray) -> list:
         _time_flash_decode(qwen, paths[f"serve:{ARCH}"]["flash_decode"]),
         _time_wkv6(rwkv, paths[f"serve:{RWKV_ARCH}"]["wkv6"]),
         _time_packed_attention_bwd(qwen, paths[f"train:{ARCH}"][
-            "packed_attention_bwd"], train_seg))]
+            "packed_attention_bwd"], train_seg),
+        _time_wkv6_bwd(rwkv, paths[RWKV_TRAIN_PATH]["wkv6_bwd"], rwkv_seg))]
 
 
 # ------------------------------------------------------------- 6. train
@@ -1760,9 +2263,7 @@ def phase_train() -> tuple[dict, np.ndarray]:
         losses.append(metrics["loss"].item())
     counts = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {"packed_attention": cfg.num_layers * TRAIN_STEPS,
-            "packed_attention_bwd": cfg.num_layers * TRAIN_STEPS,
-            "flash_decode": 0, "wkv6": 0}
+    want = _train_want(cfg, TRAIN_STEPS)
     steady = float(np.mean(step_ms[1:]))
     log(f"[train] losses {losses}")
     log(f"[train] step ms (CUDA events) {[round(t, 3) for t in step_ms]}; "
@@ -1997,9 +2498,7 @@ def phase_trainer() -> tuple[dict, np.ndarray]:
     log(f"[trainer] ledger {report}; dropped by reason {dict(drops)}; "
         f"{threads} Python threads alive (the data plane's actors, the "
         "clients' prefetchers and this one)")
-    want = {"packed_attention": cfg.num_layers * TRAINER_STEPS,
-            "packed_attention_bwd": cfg.num_layers * TRAINER_STEPS,
-            "flash_decode": 0, "wkv6": 0}
+    want = _train_want(cfg, TRAINER_STEPS)
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
     losses = [r["loss"] for r in hist]
@@ -2145,9 +2644,7 @@ def _train_from_plane(model, cfg, strategy: str, steps: int, lr: float,
     log(f"[trace] {tag} step with its fetch, {strategy}: {traced}")
     log(f"[{tag}] {strategy}: ledger {report}; dropped by reason "
         f"{dict(drops)}")
-    want = {"packed_attention": cfg.num_layers * steps,
-            "packed_attention_bwd": cfg.num_layers * steps,
-            "flash_decode": 0, "wkv6": 0}
+    want = _train_want(cfg, steps)
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
     losses = [r["loss"] for r in hist]
@@ -2240,6 +2737,70 @@ def phase_trainer_moe() -> tuple[dict, np.ndarray]:
     return counts, segs[0]
 
 
+def phase_trainer_rwkv() -> tuple[dict, np.ndarray]:
+    """rwkv6-3b at full width with RWKV_TRAIN_LAYERS of its 32 layers (a cut
+    for memory) trained by the port's ``Trainer`` from phase 8's live plane
+    under ``backbone_balance`` (whose cost model is linear for the ssm
+    family) for TRAINER_STEPS steps, through the wkv6 forward and backward
+    kernels once a layer a step.  Returns the counts and the first batch's
+    segment ids."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[rwkv-trainer] memory_allocated before the phase: "
+        f"{torch.cuda.memory_allocated()} B")
+    cfg = get_config(RWKV_ARCH).replace(num_layers=RWKV_TRAIN_LAYERS)
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != RWKV_TRAIN_PARAMS:
+        raise AssertionError(f"{n_params} parameters, not {RWKV_TRAIN_PARAMS}")
+    log(f"[rwkv-trainer] {RWKV_ARCH} layers={cfg.num_layers} of 32 "
+        f"d_model={cfg.d_model} wkv heads={cfg.d_model // cfg.rwkv_head_dim}"
+        f" of {cfg.rwkv_head_dim} chunk={cfg.rwkv_chunk} params={n_params}; "
+        f"Overlord: coyo_like_specs(4), DP {TRAIN_BATCH} x 1 row x "
+        f"{TRAIN_SEQ}, samples_per_step {TRAINER_SAMPLES}, backbone_balance")
+    counts, _, segs = _train_from_plane(model, cfg, "backbone_balance",
+                                        TRAINER_STEPS, 1e-3, "rwkv-trainer")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, segs[0]
+
+
+def phase_trainer_dense() -> tuple[dict, np.ndarray]:
+    """qwen3-32b (64 q heads on 8 kv heads of 80) at full width with
+    QWEN32_TRAIN_LAYERS of its 64 layers (a cut for memory) trained by the
+    port's ``Trainer`` from phase 8's live plane under ``backbone_balance``
+    for TRAINER_STEPS steps: the attention backward at d 80 on a trained
+    path.  Returns the counts and the first batch's segment ids."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[dense-trainer] memory_allocated before the phase: "
+        f"{torch.cuda.memory_allocated()} B")
+    cfg = get_config(QWEN32_ARCH).replace(num_layers=QWEN32_TRAIN_LAYERS)
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != QWEN32_TRAIN_PARAMS:
+        raise AssertionError(f"{n_params} parameters, not "
+                             f"{QWEN32_TRAIN_PARAMS}")
+    log(f"[dense-trainer] {QWEN32_ARCH} layers={cfg.num_layers} of 64 "
+        f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} of "
+        f"{cfg.resolved_head_dim()} params={n_params}; Overlord: "
+        f"coyo_like_specs(4), DP {TRAIN_BATCH} x 1 row x {TRAIN_SEQ}, "
+        f"samples_per_step {TRAINER_SAMPLES}, backbone_balance")
+    counts, _, segs = _train_from_plane(model, cfg, "backbone_balance",
+                                        TRAINER_STEPS, 1e-3, "dense-trainer")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, segs[0]
+
+
 def phase_loss() -> dict:
     """The full-width loss: phase 8's model (qwen3-8b, TRAIN_LAYERS layers,
     vocab 151,936) trained by ``Trainer`` for LOSS_STEPS steps at peak lr
@@ -2294,9 +2855,7 @@ def phase_example() -> dict:
         f"in {wall:.1f}s; mean loss first 10 {out['first']}, last 10 "
         f"{out['last']}: {out['share']:.4f} of the gap to ln(V - 1) closed; "
         f"launches {counts}")
-    want = {"packed_attention": cfg.num_layers * steps,
-            "packed_attention_bwd": cfg.num_layers * steps,
-            "flash_decode": 0, "wkv6": 0}
+    want = _train_want(cfg, steps)
     if out["trainer"].device.type != "cuda" or counts != want:
         raise AssertionError(f"the example launched {counts}, not {want}")
     return counts
@@ -2352,10 +2911,14 @@ def _time_packed_attention_bwd(cfg, launches, seg: np.ndarray) -> dict:
         *sets[0], return_live=True)
     live = _kernel_live_pairs(live_q, live_kv, segs, segs, True,
                               "packed_attention_bwd training shape")
-    exp = ref.packed_attention_bwd_ref(*sets[0])
-    err = max(_check(f"packed_attention_bwd training shape {name}", g, e,
-                     TOL[bf]) for name, g, e in zip(("dq", "dk", "dv"), got,
-                                                    exp))
+    # one kv head under every q head (MQA): held to the version that
+    # rounds where the kernel rounds (_check_long_group_bwd says why)
+    plain_fn = ref.packed_attention_bwd_bf16_ref if cfg.num_kv_heads == 1 \
+        else ref.packed_attention_bwd_ref
+    exp = plain_fn(*sets[0])
+    err = max(_check(f"packed_attention_bwd training shape {name} vs "
+                     f"{plain_fn.__name__}", g, e, TOL[bf])
+              for name, g, e in zip(("dq", "dk", "dv"), got, exp))
     ms = _time_ms(packed_attention_bwd.packed_attention_bwd, sets, 20)
     plain_ms = _time_ms(ref.packed_attention_bwd_ref, sets, 4)
     causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device="cuda"))
@@ -2567,6 +3130,26 @@ def phase_serve_moe() -> dict:
     return paths        # frees the 31.2 GB of bf16 qwen3-moe weights
 
 
+def phase_serve_dense() -> dict:
+    """yi-9b at full width and depth, then granite-20b and qwen3-32b at full
+    width with DENSE_SERVE_LAYERS of their layers, each with its prefill
+    and decode traces.  Returns each path's counts."""
+    from repro_torch.configs import get_config
+    paths = {}
+    paths[f"serve:{YI_ARCH}"], served = phase_serve(YI_ARCH)
+    phase_trace_prefill(YI_ARCH, served)
+    phase_trace_decode(YI_ARCH, served)
+    del served          # frees the 17.7 GB of bf16 yi-9b weights
+    for arch, layers in DENSE_SERVE_LAYERS.items():
+        path = (f"serve:{arch}:{layers}-of-{get_config(arch).num_layers}-"
+                "layers")
+        paths[path], served = phase_serve(arch, layers)
+        phase_trace_prefill(path[len("serve:"):], served)
+        phase_trace_decode(path[len("serve:"):], served)
+        del served
+    return paths
+
+
 def main_moe():
     """``--only moe``: the builds of the three attention kernels, their
     checks at the MoE family's heads (granite-moe's group 3, qwen3-moe's
@@ -2597,10 +3180,60 @@ def main_moe():
                 own=train)]
 
 
+
+def main_rwkvtrain():
+    """``--only rwkvtrain``: the builds of the two wkv6 kernels, the
+    backward's checks, reduced rwkv6-3b's first step against the CPU and
+    its memorising a batch, the rwkv6-3b trainer phase, and the two wkv6
+    kernels' records on the trainer's first batch."""
+    from repro_torch.configs import get_config
+    phase_build(("wkv6", "wkv6_bwd"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_check_rwkv_train()
+    paths = {}
+    paths[RWKV_TRAIN_PATH], seg = phase_trainer_rwkv()
+    log(f"[done] launches by path: {paths}")
+    cfg, counts = get_config(RWKV_ARCH), paths[RWKV_TRAIN_PATH]
+    return [_with_paths(_time_wkv6(cfg, counts["wkv6"], seg), paths,
+                        own=RWKV_TRAIN_PATH),
+            _with_paths(_time_wkv6_bwd(cfg, counts["wkv6_bwd"], seg), paths,
+                        own=RWKV_TRAIN_PATH)]
+
+
+
+def main_dense():
+    """``--only dense``: the builds of the three attention kernels, their
+    checks at the dense family's new heads (d 80, group 48), the three
+    reduced configs on the card, the three serve runs and their traces,
+    the qwen3-32b trainer phase, and the three kernels' records: the
+    forward and the backward on the qwen3-32b trainer's first batch,
+    ``flash_decode`` at granite-20b's heads."""
+    from repro_torch.configs import get_config
+    phase_build(("packed_attention", "packed_attention_bwd", "flash_decode"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_check_dense()
+    paths = phase_serve_dense()
+    paths[QWEN32_TRAIN_PATH], seg = phase_trainer_dense()
+    log(f"[done] launches by path: {paths}")
+    qwen32, granite = get_config(QWEN32_ARCH), get_config(GRANITE20_ARCH)
+    train, serve = QWEN32_TRAIN_PATH, GRANITE20_SERVE_PATH
+    return [_with_paths(_time_packed_attention(
+                qwen32, paths[train]["packed_attention"], seg), paths,
+                own=train),
+            _with_paths(_time_flash_decode(
+                granite, paths[serve]["flash_decode"]), paths, own=serve),
+            _with_paths(_time_packed_attention_bwd(
+                qwen32, paths[train]["packed_attention_bwd"], seg), paths,
+                own=train)]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["wkv6", "train", "bwd",
-                                           "trainer", "vlm", "moe"],
+                                           "trainer", "vlm", "moe",
+                                           "rwkvtrain", "dense"],
                         default=None, help="run only this path's builds, "
                         "checks and timing")
     args = parser.parse_args()
@@ -2611,7 +3244,9 @@ def main():
     if args.only:
         kernels = {"wkv6": main_wkv6, "train": main_train,
                    "bwd": main_bwd, "trainer": main_trainer,
-                   "vlm": main_vlm, "moe": main_moe}[args.only]()
+                   "vlm": main_vlm, "moe": main_moe,
+                   "rwkvtrain": main_rwkvtrain,
+                   "dense": main_dense}[args.only]()
         log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {
@@ -2622,6 +3257,8 @@ def main():
     phase_check()
     phase_check_train()
     phase_check_moe()
+    phase_check_rwkv_train()
+    phase_check_dense()
     paths = {}          # each path's launch counts, from its own zeroed run
     paths[f"serve:{ARCH}"], served = phase_serve(ARCH)
     phase_trace_prefill(ARCH, served)
@@ -2636,14 +3273,17 @@ def main():
     phase_trace_decode(VLM_ARCH, served)
     del served          # frees the 32.9 GB of bf16 paper-llama-12b weights
     paths.update(phase_serve_moe())
+    paths.update(phase_serve_dense())
     paths[f"train:{ARCH}"], seg = phase_train()
     paths[f"trainer:{ARCH}"], _ = phase_trainer()
     paths.update(phase_trainer_vlm()[0])
     paths[f"trainer:{TMOE_ARCH}"], _ = phase_trainer_moe()
+    paths[RWKV_TRAIN_PATH], rwkv_seg = phase_trainer_rwkv()
+    paths[QWEN32_TRAIN_PATH], _ = phase_trainer_dense()
     paths[f"loss:{ARCH}:data-vocab-{LOSS_VOCAB}"] = phase_loss()
     paths["example:train_e2e_torch"] = phase_example()
     log(f"[done] launches by path: {paths}")
-    kernels = phase_time(paths, seg)
+    kernels = phase_time(paths, seg, rwkv_seg)
     log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -80,7 +80,8 @@ def list_configs() -> list[str]:
 
 # Config modules of the archs this port runs.
 _PORTED = ["qwen3_8b", "rwkv6_3b", "pixtral_12b", "paper_vlm",
-           "qwen3_moe_30b_a3b", "granite_moe_3b_a800m"]
+           "qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "yi_9b",
+           "granite_20b", "qwen3_32b"]
 
 _LOADED = False
 

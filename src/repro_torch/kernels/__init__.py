@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 ``ops`` is the entry point; ``ref`` holds the plain PyTorch versions;
-``packed_attention``, ``packed_attention_bwd``, ``flash_decode`` and
-``wkv6`` wrap the kernels in ``csrc/``, which ``_build`` compiles with nvcc
-at first use.
+``packed_attention``, ``packed_attention_bwd``, ``flash_decode``, ``wkv6``
+and ``wkv6_bwd`` wrap the kernels in ``csrc/``, which ``_build`` compiles
+with nvcc at first use.
 """
 import torch
 

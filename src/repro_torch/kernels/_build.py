@@ -1,8 +1,9 @@
 """Build the CUDA kernels with ``nvcc`` at first use and load them.
 
 Each ``csrc/<name>.cu`` (``packed_attention``, ``packed_attention_bwd``,
-``flash_decode``, ``wkv6``) has a plain C interface and is compiled on its
-own into ``build/repro_torch_kernels/lib<name>.so`` at the repository root:
+``flash_decode``, ``wkv6``, ``wkv6_bwd``) has a plain C interface and is
+compiled on its own into ``build/repro_torch_kernels/lib<name>.so`` at the
+repository root:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
         -Xcompiler -fPIC -o lib<name>.so <name>.cu
@@ -25,7 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
 KERNELS = ("packed_attention", "packed_attention_bwd", "flash_decode",
-           "wkv6")
+           "wkv6", "wkv6_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

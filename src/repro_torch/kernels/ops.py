@@ -5,7 +5,9 @@ tensors go to the hand-written kernels (which launch or raise; nothing falls
 back), CPU tensors go to ``kernels.ref`` because the caller put them there.
 Under autograd, bfloat16 ``packed_attention`` on the card runs the forward
 kernel (which then also writes each row's log-sum-exp) and the backward
-kernel; the other kernels have no backward and raise (ROADMAP.md).
+kernel, and ``wkv6`` the forward kernel (which then also keeps the state
+entering each chunk) and the backward kernel; float32 ``packed_attention``
+and ``decode_attention`` have no backward and raise (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from repro_torch.kernels import packed_attention as _packed_attention
 from repro_torch.kernels import packed_attention_bwd as _packed_attention_bwd
 from repro_torch.kernels import ref
 from repro_torch.kernels import wkv6 as _wkv6
+from repro_torch.kernels import wkv6_bwd as _wkv6_bwd
 
 
 class _PackedAttention(torch.autograd.Function):
@@ -35,6 +38,31 @@ class _PackedAttention(torch.autograd.Function):
         dq, dk, dv = _packed_attention_bwd.packed_attention_bwd(
             q, k, v, out, lse, dout, q_seg, kv_seg, causal=ctx.causal)
         return dq, dk, dv, None, None, None
+
+
+class _WKV6(torch.autograd.Function):
+    """The forward kernel, keeping the state entering each chunk, and the
+    backward kernel."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, loga, u, reset, chunk):
+        b, s, h, dk = r.shape
+        nc = -(-s // min(chunk, s)) if s else 0
+        states = torch.empty((b, h, nc, dk, dk), dtype=torch.float32,
+                             device=r.device)
+        out = _wkv6.wkv6(r, k, v, loga, u, reset, chunk=chunk,
+                         chunk_states=states)
+        ctx.save_for_backward(r, k, v, loga, u, reset, states)
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        r, k, v, loga, u, reset, states = ctx.saved_tensors
+        grads = _wkv6_bwd.wkv6_bwd(r, k, v, loga, u, reset,
+                                   dout.contiguous(), states,
+                                   chunk=ctx.chunk)
+        return (*grads, None, None)
 
 
 def packed_attention(q, k, v, q_seg, kv_seg, *, causal: bool = True
@@ -63,5 +91,13 @@ def wkv6(r, k, v, loga, u, reset, *, chunk: int, return_state: bool = False):
     if r.device.type == "cpu":
         return ref.wkv6_chunked(r, k, v, loga, u, chunk=chunk, reset=reset,
                                 return_state=return_state)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, loga, u)):
+        if return_state:
+            raise RuntimeError(
+                "wkv6 under grad with return_state: the backward kernel "
+                "takes no gradient of the final state, and no training path "
+                "asks for it; see ROADMAP.md")
+        return _WKV6.apply(r, k, v, loga, u, reset, chunk)
     return _wkv6.wkv6(r, k, v, loga, u, reset, chunk=chunk,
                       return_state=return_state)

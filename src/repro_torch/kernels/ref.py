@@ -5,16 +5,19 @@ with the mask value -1e30 and the output in q's dtype.  ``kernels.ops``
 sends CPU tensors here; on the card they are the kernels' yardstick for
 correctness (not for speed).  Beside ``packed_attention_ref`` sit the
 plain versions of what the training path adds: ``packed_attention_lse_ref``
-(the forward kernel's log-sum-exp) and ``packed_attention_bwd_ref`` (the
-backward kernel), and ``packed_attention_live_tiles``, the tile pairs the
-kernels' skip rule keeps; the tests and chip_smoke.py use them, no model
-does.  Two
+(the forward kernel's log-sum-exp), ``packed_attention_bwd_ref`` (the
+backward kernel) and ``packed_attention_bwd_bf16_ref`` (the same, rounding
+where the kernel rounds), and ``packed_attention_live_tiles``, the tile
+pairs the kernels' skip rule keeps; the tests and chip_smoke.py use them,
+no model does.  Two
 plain versions of WKV6 sit here: the sequential oracle ``wkv6_ref`` and
 ``wkv6_chunked``, the port of the JAX model's chunked path
 (``repro.models.rwkv.wkv6_chunked``), which ``models.rwkv`` re-exports
 under its JAX name.  A third, ``wkv6_two_pass``,
 repeats the CUDA kernel's decomposition for the tests and chip_smoke.py;
-no model calls it.
+no model calls it.  Their gradients: ``wkv6_bwd_ref`` (autograd of
+``wkv6_chunked``, the plain version of the ``wkv6_bwd`` kernel) and
+``wkv6_bwd_two_pass`` (that kernel's decomposition).
 """
 from __future__ import annotations
 
@@ -97,6 +100,33 @@ def packed_attention_bwd_ref(q, k, v, out, lse, dout, q_seg, kv_seg, *,
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
     dp = torch.einsum("bhqd,bhkd->bhqk", do, vf)
     ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dk = dk.reshape(b, kh, h // kh, sk, d).sum(2)
+    dv = dv.reshape(b, kh, h // kh, sk, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def packed_attention_bwd_bf16_ref(q, k, v, out, lse, dout, q_seg, kv_seg, *,
+                                  causal: bool = True):
+    """``packed_attention_bwd_ref`` with P and dS rounded to bfloat16 where
+    the backward kernel rounds them, as the bf16 operands of its dV, dK and
+    dQ products; sums in float32.  The yardstick of the kernel's arithmetic
+    where the float32 oracles' elementwise tolerance is out of reach of any
+    bf16 backward (long GQA groups, whose dK and dV sum many heads)."""
+    b, h, sq, d = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    bf = torch.bfloat16
+    qf, kf, vf = q.float(), _expand_kv(k, h).float(), _expand_kv(v, h).float()
+    do = dout.float()
+    mask = _attention_mask(q_seg, kv_seg, sq, sk, causal)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    delta = torch.sum(do * out.float(), -1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(bf).float(), do)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vf)
+    ds = (p * (dp - delta[..., None])).to(bf).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
     dk = dk.reshape(b, kh, h // kh, sk, d).sum(2)
@@ -345,3 +375,121 @@ def wkv6_two_pass(r, k, v, loga, u, reset, *, chunk: int,
     o = o + A @ vc + bonus[..., None] * vc
     o = o[:, :, :, :L].permute(0, 2, 3, 1, 4).reshape(b, nc * L, h, dk)
     return o[:, :s], S, states
+
+
+def wkv6_bwd_ref(r, k, v, loga, u, reset, dout, *, chunk: int):
+    """The gradients of ``wkv6_chunked``'s output against ``dout``, by
+    autograd in float32: the plain version of the ``wkv6_bwd`` kernel.
+    A ragged s is padded to whole chunks with tokens that come after every
+    real one (zeros, no gradient of their outputs), which changes no
+    gradient of the real ones.  Returns dr, dk, dv, dloga (b, s, h, dk) and
+    du (h, dk)."""
+    F = torch.nn.functional
+    s = r.shape[1]
+    pad = -s % min(chunk, s)
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_()
+                  for t in (r, k, v, loga, u)]
+        padded = [F.pad(t, (0, 0, 0, 0, 0, pad)) for t in leaves[:4]]
+        o = wkv6_chunked(*padded, leaves[4], chunk=chunk,
+                         reset=F.pad(reset, (0, pad)))
+        return torch.autograd.grad(o[:, :s], leaves, dout.float())
+
+
+def wkv6_bwd_two_pass(r, k, v, loga, u, reset, dout, *, chunk: int):
+    """The CUDA ``wkv6_bwd`` kernel's decomposition, in plain PyTorch: the
+    gradients of the WKV6 function (``wkv6_ref``, ``wkv6_chunked``) at any
+    s, ordered as the kernel orders them.  Every decay is a running product
+    of the per-token decays d = exp(loga) over its own causal range, never
+    a difference of two cumsums.  Within a chunk, with entering state S,
+    the state's gradient dS leaving the chunk, R the running reset count,
+    and the masks of ``wkv6_chunked``:
+        o_t  = r_q,t S + sum_{s<t} A[t,s] v_s + B_t v_t
+        S'   = dec S + sum_s k_hat_s^T v_s
+    r_q,t = r_t Pq_t (Pq_t: decay over [0, t), where R_t == 0);
+    k_hat_s = k_s Pk_s (Pk_s: decay over (s, L), where R_s == R_last);
+    dec = decay over [0, L) where R_last == 0;
+    A[t,s] = sum_i r_t,i k_s,i W[t,s,i], W the decay over (s, t), where
+    R_s == R_t; B_t = r_t . (u * k_t).
+
+    Pass 1 walks the chunks backwards: dS leaving chunk c - 1 is
+    dec_c dS_c + r_q,c^T dO_c.  Pass 2 forms each chunk's gradients from
+    its entering state and the dS leaving it:
+        dr_t = Pq_t (dO_t S^T) + sum_s dA[t,s] k_s W[t,s] + dB_t u k_t
+        dk_s = Pk_s (v_s dS^T) + sum_t dA[t,s] r_t W[t,s] + dB_s u r_s
+        dv_s = k_hat_s dS + sum_t A[t,s] dO_t + B_s dO_s
+        du   = sum_t dB_t r_t k_t
+    with dA[t,s] = dO_t . v_s on the pairs A keeps and dB_t = dO_t . v_t.
+    loga_m sits in the exponent of every decay whose range holds m:
+    Pq_t for t > m, Pk_s for s < m, dec, and W[t,s] for s < m < t.  With
+    y = r (dr's first two terms), z = k (dk's second term) and w = k (dk's
+    first term), each a sum of the terms x[t,s] = dA[t,s] r_t k_s W[t,s]
+    or of the state terms, the pairs that hold m are those of
+    sum_{t>m} y_t - sum_{s>=m} z_s, so
+        dloga_m = sum_{t>m} (y_t - z_t) - z_m + sum_{s<m} w_s
+                  + dec (dS . S, summed over dv).
+    Returns dr, dk, dv, dloga (b, s, h, dk), du (h, dk), and the gradient
+    of the state leaving each chunk (b, h, nc, dk, dv)."""
+    F = torch.nn.functional
+    b, s, h, dk = r.shape
+    L = min(chunk, s)
+    nc = -(-s // L)
+
+    def chunks(a):  # (b, s, h, dk) -> (b, h, nc, L, dk), zero-padded
+        a = F.pad(a, (0, 0, 0, 0, 0, nc * L - s))
+        return a.reshape(b, nc, L, h, dk).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, lac, oc = map(chunks, (r, k, v, loga, dout))
+    flags = F.pad(reset.to(torch.int32), (0, nc * L - s)).reshape(b, nc, L)
+    R = flags.cumsum(-1)[:, None, :, :, None]           # (b, 1, nc, L, 1)
+    d = torch.exp(torch.clamp(lac, max=0.0))
+    ones = torch.ones_like(d[..., :1, :])
+    Pq = torch.cat([ones, d[..., :-1, :]], -2).cumprod(-2)
+    # the product of d over (s, L)
+    Pk = torch.cat([d[..., 1:, :], ones], -2).flip(-2).cumprod(-2).flip(-2)
+    q_ok, k_ok = R == 0, R == R[..., -1:, :]
+    dec = torch.where(R[..., -1, :] == 0, (Pq[..., -1, :] * d[..., -1, :]),
+                      0.0)                              # (b, h, nc, dk)
+    rq, kh = rc * Pq * q_ok, kc * Pk * k_ok
+
+    # the states entering each chunk, as the forward kernel keeps them
+    S = wkv6_two_pass(r, k, v, loga, u, reset, chunk=chunk)[2]
+    # pass 1: the gradient of the state leaving each chunk
+    G = torch.zeros_like(S[:, :, 0])
+    dstates = [None] * nc
+    for c in reversed(range(nc)):
+        dstates[c] = G
+        G = dec[:, :, c, :, None] * G + rq[:, :, c].transpose(-1, -2) \
+            @ oc[:, :, c]
+    G = torch.stack(dstates, 2)
+
+    # pass 2
+    pos = torch.arange(L, device=r.device)
+    W = torch.zeros((b, h, nc, L, L, dk), dtype=r.dtype, device=r.device)
+    for t in range(1, L):       # W[t, s] = product of d over (s, t)
+        W[..., t, :t, :] = torch.cat([ones, d[..., 1:t, :].flip(-2)],
+                                     -2).cumprod(-2).flip(-2)
+    pair = (pos[:, None] > pos[None, :]) & (R[..., :, None, 0]
+                                            == R[..., None, :, 0])
+    A = torch.einsum("...ti,...si,...tsi->...ts", rc, kc, W) * pair
+    dA = (oc @ vc.transpose(-1, -2)) * pair
+    B = (rc * u[None, :, None, None] * kc).sum(-1, keepdim=True)
+    dB = (oc * vc).sum(-1, keepdim=True)
+    dr_state = (oc @ S.transpose(-1, -2)) * Pq * q_ok
+    dk_state = (vc @ G.transpose(-1, -2)) * Pk * k_ok
+    dr_intra = torch.einsum("...ts,...si,...tsi->...ti", dA, kc, W)
+    dk_intra = torch.einsum("...ts,...ti,...tsi->...si", dA, rc, W)
+    uu = u[None, :, None, None]
+    dr = dr_state + dr_intra + dB * uu * kc
+    dkk = dk_state + dk_intra + dB * uu * rc
+    dv = kh @ G + A.transpose(-1, -2) @ oc + B * oc
+    du = (dB * rc * kc).sum((0, 2, 3))
+    y, z, w = rc * (dr_state + dr_intra), kc * dk_intra, kc * dk_state
+    after = (y - z).flip(-2).cumsum(-2).flip(-2) - (y - z)
+    before = w.cumsum(-2) - w
+    ddec = (G * S).sum(-1)                              # (b, h, nc, dk)
+    dloga = after - z + before + (dec * ddec)[..., None, :]
+
+    def unchunk(a):
+        return a.permute(0, 2, 3, 1, 4).reshape(b, nc * L, h, dk)[:, :s]
+    return (*map(unchunk, (dr, dkk, dv, dloga)), du, G)

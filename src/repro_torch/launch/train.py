@@ -7,6 +7,8 @@
         --reduced --device cpu --steps 3 --strategy hybrid_balance
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch qwen3-moe-30b-a3b --reduced --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
+        --reduced --device cpu --steps 3
 
 The port of ``repro.launch.train``: the same CLI and defaults plus
 ``--device`` (default ``cuda``; without a card that raises unless
@@ -15,10 +17,11 @@ plane's actors are threads beside the loop.  The Overlord is built with
 ``validate=False``: its launch-time static analysis is not ported yet
 (ROADMAP.md).  A vlm arch trains as a dense one, as in the JAX
 package, whose trainer passes no image embeddings; a moe arch trains with
-its aux loss in the total, as in the JAX package; ``hybrid_balance``
-balances with the JAX launcher's encoder cost, ViT-2B's
-(``configs.paper_vlm.VIT_2B``).  Other families raise and point at
-``ROADMAP.md``.
+its aux loss in the total, as in the JAX package; an ssm arch (RWKV6)
+trains through the wkv6 forward and backward kernels on the card;
+``hybrid_balance`` balances with the JAX launcher's encoder cost, ViT-2B's
+(``configs.paper_vlm.VIT_2B``).  An arch not ported yet raises where its
+config or its model is asked for, and points at ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -72,11 +75,6 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = importlib.import_module(
             "repro_torch.configs." + args.arch.replace("-", "_")).reduced()
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            "to repro_torch yet (dense, moe and vlm archs train); see "
-            "ROADMAP.md")
     model = build_model(cfg, torch.Generator(device=device).manual_seed(0))
     print(f"arch={cfg.name} params="
           f"{sum(p.numel() for p in model.parameters()):,}")

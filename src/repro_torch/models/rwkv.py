@@ -6,8 +6,9 @@ head_dim):
     S_t = diag(w_t) S_{t-1} + k_t^T v_t,   w_t = exp(-exp(w0 + lora_w(x)))
 
 The full-sequence path runs the chunked WKV through ``kernels.ops.wkv6``:
-the CUDA kernel on the card, ``wkv6_chunked`` (the JAX package's chunked
-path, kept in ``kernels.ref`` and re-exported here) on the CPU.  Decode is
+the CUDA kernel on the card (and under autograd its backward kernel),
+``wkv6_chunked`` (the JAX package's chunked path, kept in ``kernels.ref``
+and re-exported here) on the CPU.  Decode is
 the recurrence for one token, in plain tensor ops.
 
 Packing: a segment start, or padding, resets the state; padding tokens add

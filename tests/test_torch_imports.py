@@ -87,10 +87,10 @@ def test_unported_archs_raise_and_name_the_roadmap():
     from repro_torch.configs import get_config, list_configs
     from repro_torch.models.model_zoo import model_defs
     assert list_configs() == [
-        "granite-moe-3b-a800m", "paper-llama-12b", "paper-mixtral-8x7b",
-        "paper-tmoe-25b", "pixtral-12b", "qwen3-8b", "qwen3-moe-30b-a3b",
-        "rwkv6-3b"]
-    for arch in ("yi-9b", "granite-20b", "qwen3-32b", "zamba2-7b"):
+        "granite-20b", "granite-moe-3b-a800m", "paper-llama-12b",
+        "paper-mixtral-8x7b", "paper-tmoe-25b", "pixtral-12b", "qwen3-32b",
+        "qwen3-8b", "qwen3-moe-30b-a3b", "rwkv6-3b", "yi-9b"]
+    for arch in ("zamba2-7b", "whisper-medium"):
         with pytest.raises(KeyError, match="ROADMAP.md"):
             get_config(arch)
     moe = get_config("qwen3-8b").replace(family="moe", num_experts=8,

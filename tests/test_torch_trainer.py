@@ -4,8 +4,8 @@ The data plane: ``repro``'s Overlord and the port's copy, with the
 configuration ``chip_smoke.py``'s trainer phase runs at a CPU size
 (``seq_len`` 256), hand out bitwise-equal batches when live (actor threads
 and all), and keep the same delivery ledger, sample by sample, when run
-synchronously.  The slice as a whole: the port's
-``Trainer`` takes three steps on reduced qwen3-8b from the JAX trainer's
+synchronously.  The slice as a whole: the port's ``Trainer`` takes three
+steps on reduced qwen3-8b, and on reduced rwkv6-3b, from the JAX trainer's
 initial state, and the JAX train step runs on the very numpy batches the
 port's trainer assembled; losses, gradient norms and what the steps added
 to each leaf are held to ``tests/test_torch_train.py``'s tolerances.
@@ -29,6 +29,7 @@ from repro_torch.configs.qwen3_8b import reduced
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.params import tree_leaves
+from repro_torch.train import train_step as port_train_step
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig, state_leaves
 
@@ -197,12 +198,23 @@ def _rel(got, exp) -> float:
     return float(np.linalg.norm(got - exp) / np.linalg.norm(exp))
 
 
-def test_overlord_fed_steps_match_jax():
+@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-3b"])
+def test_overlord_fed_steps_match_jax(arch, monkeypatch):
     """Three steps of the port's ``Trainer`` on its own Overlord, and the
-    jitted JAX train step on the batches that trainer assembled."""
-    cfg = reduced()
+    jitted JAX train step on the batches that trainer assembled.  The
+    rwkv6-3b case computes in float32 on both sides: with the bf16 compute
+    copy its gradients are rounding in both frameworks
+    (tests/test_torch_rwkv_train.py)."""
+    import importlib
+    module = arch.replace("-", "_")
+    cfg = importlib.import_module(f"repro_torch.configs.{module}").reduced()
     opt = AdamWConfig(**OPT)
-    jmodel = jax_build_model(jax_reduced())
+    jmodel = jax_build_model(importlib.import_module(
+        f"repro.configs.{module}").reduced())
+    if cfg.family == "ssm":
+        monkeypatch.setattr(jts, "_cast_for_compute",
+                            lambda params, compute_dtype=None: params)
+        monkeypatch.setattr(port_train_step, "COMPUTE_DTYPE", torch.float32)
     jstate = jtrainer.Trainer(jmodel, None, jtrainer.TrainerConfig(
         opt=jopt.AdamWConfig(**OPT))).state
     np_state = jax.tree.map(np.asarray, jstate)
@@ -322,12 +334,14 @@ def test_launcher_trains_under_hybrid_balance_on_the_cpu():
     assert out["trainer"].ov.cfg.strategy == "hybrid_balance"
 
 
-@pytest.mark.parametrize("argv", [
-    ["--arch", "rwkv6-3b", "--reduced"],
-], ids=["ssm-family"])
-def test_launcher_refuses_what_is_not_ported(argv):
+@pytest.mark.parametrize("argv,error", [
+    (["--arch", "zamba2-7b", "--reduced"], KeyError),
+], ids=["hybrid-family"])
+def test_launcher_refuses_what_is_not_ported(argv, error):
+    """zamba2-7b (the hybrid family) has no port yet: its config is not
+    registered, and asking for it names ROADMAP.md."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(error, match="ROADMAP.md"):
         train.main(argv + ["--device", "cpu", "--steps", "1"])
 
 
