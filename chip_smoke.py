@@ -1356,9 +1356,10 @@ def _check_wkv6_bwd():
     padding rows, k zeroed on padding as the model zeroes it), at a ragged
     s, at dk 16 and 32 (resets on sub-chunk edges and mid-chunk, int32
     resets, strided inputs); bitwise equal over two calls at the training
-    shape; and against the float64 oracle (autograd of ``ref.wkv6_ref``)
-    at the steep decays of ``_steep_wkv6_inputs``, where the float32 plain
-    version's own distance is logged, not checked."""
+    shape; against the float64 oracle (autograd of ``ref.wkv6_ref``) at
+    the steep decays of ``_steep_wkv6_inputs``, where the float32 plain
+    version's own distance is logged, not checked; and at chunk 40, whose
+    last sub-chunk of 16 is ragged, against ``ref.wkv6_bwd_two_pass``."""
     from repro_torch.kernels import ref
     rng = np.random.default_rng(9)
 
@@ -1421,6 +1422,18 @@ def _check_wkv6_bwd():
             log(f"[report] {name}, plain wkv6_bwd_ref vs float64 oracle, "
                 f"{n}: {_steep_distance(g, e)}")
         del exact, plain
+    # chunk 40: sub-chunks of 16 leave the chunk's last one ragged; a
+    # ragged s, resets on sub-chunk edges; against the kernel's
+    # decomposition in plain PyTorch on the card
+    b, s, h, dk, chunk = 2, 230, 3, 64, 40
+    args = _wkv6_inputs(rng, b, s, h, dk, scale=1.0)
+    for row, t in [(0, 16), (0, 72), (1, 120), (1, 159)]:
+        args[5][row, t] = True
+    dout = dout_like(args[0])
+    _check_wkv6_grads(f"wkv6_bwd b={b} s={s} h={h} dk={dk} chunk={chunk} "
+                      "vs wkv6_bwd_two_pass",
+                      _wkv6_bwd_launch(args, dout, chunk),
+                      ref.wkv6_bwd_two_pass(*args, dout, chunk=chunk)[:5])
 
 
 def _check_wkv6_autograd():
@@ -2124,15 +2137,11 @@ def _wkv6_bwd_flops(reset, h: int, dk: int, chunk: int) -> int:
     return h * per_head
 
 
-def _time_wkv6_bwd(cfg, launches, seg: np.ndarray) -> dict:
-    """The wkv6 backward kernel at rwkv6-3b's training shape (TRAIN_BATCH x
-    TRAIN_SEQ, 40 heads of 64, the resets of segment ids ``seg``, the
-    rwkv trainer's first batch) beside its plain version (autograd of
-    ``ref.wkv6_chunked``, eager: autograd is not captured in a graph).
-    No single PyTorch call computes it.  Bound: each input (r, k, v, loga,
-    u, the resets, dO and the forward's chunk states) read once and each
-    gradient written once."""
-    from repro_torch.kernels import ref, wkv6, wkv6_bwd
+def _wkv6_bwd_sets(cfg, seg: np.ndarray) -> list:
+    """Four sets of the wkv6 backward's inputs on segment ids ``seg`` at
+    ``cfg``'s heads: r, k, v, loga, u, resets (``_wkv6_inputs``), dO and
+    the forward kernel's chunk states."""
+    from repro_torch.kernels import wkv6
     b, s = seg.shape
     dk, chunk = cfg.rwkv_head_dim, cfg.rwkv_chunk
     h = cfg.d_model // dk
@@ -2145,6 +2154,39 @@ def _time_wkv6_bwd(cfg, launches, seg: np.ndarray) -> dict:
         dout = torch.tensor(rng.normal(size=(b, s, h, dk)),
                             dtype=torch.float32, device="cuda") * 0.5
         sets.append((*args, dout, states))
+    return sets
+
+
+def _launch_split_ms(fn, sets, calls: int) -> dict:
+    """Device ms a call of each kernel ``fn`` launches, by name, from
+    ``torch.profiler`` over ``calls`` eager calls cycling through
+    ``sets``."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    return {(re.search(r"(\w+_kernel)", e.key) or [e.key[:60]])[0]:
+            e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _time_wkv6_bwd(cfg, launches, seg: np.ndarray) -> dict:
+    """The wkv6 backward kernel at rwkv6-3b's training shape (TRAIN_BATCH x
+    TRAIN_SEQ, 40 heads of 64, the resets of segment ids ``seg``, the
+    rwkv trainer's first batch) beside its plain version (autograd of
+    ``ref.wkv6_chunked``, eager: autograd is not captured in a graph).
+    No single PyTorch call computes it.  Bound: each input (r, k, v, loga,
+    u, the resets, dO and the forward's chunk states) read once and each
+    gradient written once."""
+    from repro_torch.kernels import ref, wkv6_bwd
+    b, s = seg.shape
+    dk, chunk = cfg.rwkv_head_dim, cfg.rwkv_chunk
+    h = cfg.d_model // dk
+    sets = _wkv6_bwd_sets(cfg, seg)
 
     def kernel(*a):
         return wkv6_bwd.wkv6_bwd(*a, chunk=chunk)
@@ -2155,6 +2197,11 @@ def _time_wkv6_bwd(cfg, launches, seg: np.ndarray) -> dict:
     err = _check_wkv6_grads("wkv6_bwd training shape vs wkv6_bwd_ref", got,
                             plain(*sets[0]))
     ms = _time_ms(kernel, sets, 20)
+    split = _launch_split_ms(kernel, sets, 20)
+    log(f"[time] wkv6_bwd: pass 2 resident CTAs an SM "
+        f"{wkv6_bwd.chunk_ctas_per_sm()}; each launch a call under the "
+        "profiler, device ms: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in split.items()))
     plain_ms = _time_eager_ms(plain, sets, 4)
     nbytes = _nbytes(*sets[0], *got)
     flops = _wkv6_bwd_flops(sets[0][5], h, dk, chunk)

@@ -399,11 +399,9 @@ def wkv6_bwd_ref(r, k, v, loga, u, reset, dout, *, chunk: int):
 def wkv6_bwd_two_pass(r, k, v, loga, u, reset, dout, *, chunk: int):
     """The CUDA ``wkv6_bwd`` kernel's decomposition, in plain PyTorch: the
     gradients of the WKV6 function (``wkv6_ref``, ``wkv6_chunked``) at any
-    s, ordered as the kernel orders them.  Every decay is a running product
-    of the per-token decays d = exp(loga) over its own causal range, never
-    a difference of two cumsums.  Within a chunk, with entering state S,
-    the state's gradient dS leaving the chunk, R the running reset count,
-    and the masks of ``wkv6_chunked``:
+    s, ordered as the kernel orders them.  Within a chunk, with entering
+    state S, the state's gradient dS leaving the chunk, R the running reset
+    count, and the masks of ``wkv6_chunked``:
         o_t  = r_q,t S + sum_{s<t} A[t,s] v_s + B_t v_t
         S'   = dec S + sum_s k_hat_s^T v_s
     r_q,t = r_t Pq_t (Pq_t: decay over [0, t), where R_t == 0);
@@ -423,38 +421,68 @@ def wkv6_bwd_two_pass(r, k, v, loga, u, reset, dout, *, chunk: int):
     loga_m sits in the exponent of every decay whose range holds m:
     Pq_t for t > m, Pk_s for s < m, dec, and W[t,s] for s < m < t.  With
     y = r (dr's first two terms), z = k (dk's second term) and w = k (dk's
-    first term), each a sum of the terms x[t,s] = dA[t,s] r_t k_s W[t,s]
-    or of the state terms, the pairs that hold m are those of
+    first term), the pairs that hold m are those of
     sum_{t>m} y_t - sum_{s>=m} z_s, so
         dloga_m = sum_{t>m} (y_t - z_t) - z_m + sum_{s<m} w_s
                   + dec (dS . S, summed over dv).
+
+    The pair terms go by sub-chunks of WKV6_SUB tokens, the chunk padded to
+    whole sub-chunks with tokens of decay 1 and zero inputs.  A diagonal
+    block (query and key in one sub-chunk T) walks its pairs with W a
+    running product of the per-token decays d = exp(loga), at most sub - 1
+    deep.  A block below it (query sub-chunk T, key sub-chunk S < T)
+    splits each decay at T's first token: with the factors
+    q'_t = r_t qd_t (qd_t: the decay over [16 T, t)) and
+    k'_s = k_s kd_s (kd_s: the decay over (s, 16 S + 16)), and mid the
+    decay over the sub-chunks strictly between S and T,
+        A_TS     = (q'_T mid) k'_S^T
+        dr on T  = qd_T (sum_S mid (dA_TS k'_S))
+        dk on S  = kd_S (sum_T mid (dA_TS^T q'_T))
+        dv on S  = sum_T A_TS^T dO_T,
+    the reset mask applied to A and dA after each product; the sums over S
+    and T go in Horner form, a partial sum times one sub-chunk's decay
+    before the next block's product is added.  Every decay is a product of
+    d over its own range (within a sub-chunk, or of whole sub-chunks'
+    products), never a difference of two float32 cumsums, which loses
+    ~6e-8 |cw| and at steep decays moves results past 5e-5 / 5e-4.
     Returns dr, dk, dv, dloga (b, s, h, dk), du (h, dk), and the gradient
     of the state leaving each chunk (b, h, nc, dk, dv)."""
     F = torch.nn.functional
     b, s, h, dk = r.shape
     L = min(chunk, s)
-    nc = -(-s // L)
+    sub = WKV6_SUB
+    nc, nT = -(-s // L), -(-L // sub)
+    Lp = nT * sub
 
-    def chunks(a):  # (b, s, h, dk) -> (b, h, nc, L, dk), zero-padded
-        a = F.pad(a, (0, 0, 0, 0, 0, nc * L - s))
-        return a.reshape(b, nc, L, h, dk).permute(0, 3, 1, 2, 4)
+    def chunks(a):  # (b, s, h, dk) -> (b, h, nc, Lp, dk), zero-padded
+        a = F.pad(a, (0, 0, 0, 0, 0, nc * L - s)).reshape(b, nc, L, h, dk)
+        return F.pad(a, (0, 0, 0, 0, 0, Lp - L)).permute(0, 3, 1, 2, 4)
+
+    def excl_prod(a, dim):   # running product of the entries before
+        a = a.movedim(dim, -1)
+        return F.pad(a, (1, 0), value=1.0)[..., :-1].cumprod(-1) \
+            .movedim(-1, dim)
+
+    def after_prod(a, dim):  # running product of the entries after
+        return excl_prod(a.flip(dim), dim).flip(dim)
 
     rc, kc, vc, lac, oc = map(chunks, (r, k, v, loga, dout))
     flags = F.pad(reset.to(torch.int32), (0, nc * L - s)).reshape(b, nc, L)
-    R = flags.cumsum(-1)[:, None, :, :, None]           # (b, 1, nc, L, 1)
-    d = torch.exp(torch.clamp(lac, max=0.0))
-    ones = torch.ones_like(d[..., :1, :])
-    Pq = torch.cat([ones, d[..., :-1, :]], -2).cumprod(-2)
-    # the product of d over (s, L)
-    Pk = torch.cat([d[..., 1:, :], ones], -2).flip(-2).cumprod(-2).flip(-2)
-    q_ok, k_ok = R == 0, R == R[..., -1:, :]
-    dec = torch.where(R[..., -1, :] == 0, (Pq[..., -1, :] * d[..., -1, :]),
-                      0.0)                              # (b, h, nc, dk)
-    rq, kh = rc * Pq * q_ok, kc * Pk * k_ok
+    R = F.pad(flags, (0, Lp - L)).cumsum(-1)[:, None, :, :, None]
+    q_ok, k_ok = R == 0, R == R[..., -1:, :]            # (b, 1, nc, Lp, 1)
+    blocks = (b, h, nc, nT, sub, dk)
+    d = torch.exp(torch.clamp(lac, max=0.0)).reshape(blocks)
+    qd, kd = excl_prod(d, 4), after_prod(d, 4)          # within a sub-chunk
+    tot = d.prod(4)                                     # (b, h, nc, nT, dk)
+    base, after = excl_prod(tot, 3), after_prod(tot, 3)
+    dec = torch.where(R[..., -1, :] == 0, tot.prod(3), 0.0)
+    Pq = (base[..., None, :] * qd).reshape(rc.shape)
+    Pk = (kd * after[..., None, :]).reshape(rc.shape)
 
     # the states entering each chunk, as the forward kernel keeps them
     S = wkv6_two_pass(r, k, v, loga, u, reset, chunk=chunk)[2]
     # pass 1: the gradient of the state leaving each chunk
+    rq = rc * Pq * q_ok
     G = torch.zeros_like(S[:, :, 0])
     dstates = [None] * nc
     for c in reversed(range(nc)):
@@ -463,33 +491,71 @@ def wkv6_bwd_two_pass(r, k, v, loga, u, reset, dout, *, chunk: int):
             @ oc[:, :, c]
     G = torch.stack(dstates, 2)
 
-    # pass 2
-    pos = torch.arange(L, device=r.device)
-    W = torch.zeros((b, h, nc, L, L, dk), dtype=r.dtype, device=r.device)
-    for t in range(1, L):       # W[t, s] = product of d over (s, t)
-        W[..., t, :t, :] = torch.cat([ones, d[..., 1:t, :].flip(-2)],
-                                     -2).cumprod(-2).flip(-2)
-    pair = (pos[:, None] > pos[None, :]) & (R[..., :, None, 0]
-                                            == R[..., None, :, 0])
-    A = torch.einsum("...ti,...si,...tsi->...ts", rc, kc, W) * pair
-    dA = (oc @ vc.transpose(-1, -2)) * pair
-    B = (rc * u[None, :, None, None] * kc).sum(-1, keepdim=True)
-    dB = (oc * vc).sum(-1, keepdim=True)
+    # pass 2: the state's own terms, dA, and the diagonal blocks' walks
+    pos = torch.arange(Lp, device=r.device)
+    pair = (pos[:, None] > pos[None, :]) & (R == R.transpose(-1, -2))
     dr_state = (oc @ S.transpose(-1, -2)) * Pq * q_ok
-    dk_state = (vc @ G.transpose(-1, -2)) * Pk * k_ok
-    dr_intra = torch.einsum("...ts,...si,...tsi->...ti", dA, kc, W)
-    dk_intra = torch.einsum("...ts,...ti,...tsi->...si", dA, rc, W)
+    dA = (oc @ vc.transpose(-1, -2)) * pair
+    dAb = dA.reshape(b, h, nc, nT, sub, nT, sub)
+    rb, kb = rc.reshape(blocks), kc.reshape(blocks)
+    W = torch.zeros((b, h, nc, nT, sub, sub, dk), device=r.device)
+    for t in range(1, sub):     # W[t, s] = the product of d over (s, t)
+        W[..., t, :t, :] = after_prod(d[..., :t, :], 4)
+    dA_diag = torch.stack([dAb[:, :, :, T, :, T] for T in range(nT)], 3)
+    A = torch.zeros((b, h, nc, nT, sub, nT, sub), device=r.device)
+    for T in range(nT):
+        A[:, :, :, T, :, T] = torch.einsum("...ti,...si,...tsi->...ts",
+                                           rb[:, :, :, T], kb[:, :, :, T],
+                                           W[:, :, :, T])
+    dr_intra = torch.einsum("...ts,...si,...tsi->...ti", dA_diag, kb, W)
+    dk_intra = torch.einsum("...ts,...ti,...tsi->...si", dA_diag, rb, W)
+
+    # the blocks below the diagonal, as products of the factors
+    qf, kf = rb * qd, kb * kd
+
+    def mid(S_, T):  # the decay over the sub-chunks strictly between
+        m = torch.ones_like(tot[:, :, :, 0])
+        for U in range(S_ + 1, T):
+            m = m * tot[:, :, :, U]
+        return m[..., None, :]
+    for T in range(1, nT):
+        acc = torch.zeros_like(qf[:, :, :, T])
+        for S_ in range(T):
+            A[:, :, :, T, :, S_] = (qf[:, :, :, T] * mid(S_, T)) \
+                @ kf[:, :, :, S_].transpose(-1, -2)
+            if S_ > 0:
+                acc = acc * tot[:, :, :, S_, None, :]
+            acc = acc + dAb[:, :, :, T, :, S_] @ kf[:, :, :, S_]
+        dr_intra[:, :, :, T] += qd[:, :, :, T] * acc
+    for S_ in range(nT - 1):
+        acc = torch.zeros_like(kf[:, :, :, S_])
+        for T in reversed(range(S_ + 1, nT)):
+            if T < nT - 1:
+                acc = acc * tot[:, :, :, T, None, :]
+            acc = acc + dAb[:, :, :, T, :, S_].transpose(-1, -2) \
+                @ qf[:, :, :, T]
+        dk_intra[:, :, :, S_] += kd[:, :, :, S_] * acc
+    dr_intra, dk_intra = dr_intra.reshape(rc.shape), dk_intra.reshape(rc.shape)
+    # A keeps the pairs with no reset between; the u bonus on its diagonal
+    B = (rc * u[None, :, None, None] * kc).sum(-1)
+    A = A.reshape(b, h, nc, Lp, Lp) * pair + torch.diag_embed(B)
+
+    # the terms of the state leaving the chunk
+    dB = (oc * vc).sum(-1, keepdim=True)
+    k_hat = kf.reshape(rc.shape) * after.repeat_interleave(sub, 3) * k_ok
+    Xk = vc @ G.transpose(-1, -2)
     uu = u[None, :, None, None]
     dr = dr_state + dr_intra + dB * uu * kc
-    dkk = dk_state + dk_intra + dB * uu * rc
-    dv = kh @ G + A.transpose(-1, -2) @ oc + B * oc
+    dkk = Pk * k_ok * Xk + dk_intra + dB * uu * rc
+    dv = k_hat @ G + A.transpose(-1, -2) @ oc
     du = (dB * rc * kc).sum((0, 2, 3))
-    y, z, w = rc * (dr_state + dr_intra), kc * dk_intra, kc * dk_state
-    after = (y - z).flip(-2).cumsum(-2).flip(-2) - (y - z)
+    y, z, w = rc * (dr_state + dr_intra), kc * dk_intra, k_hat * Xk
+    after_yz = (y - z).flip(-2).cumsum(-2).flip(-2) - (y - z)
     before = w.cumsum(-2) - w
     ddec = (G * S).sum(-1)                              # (b, h, nc, dk)
-    dloga = after - z + before + (dec * ddec)[..., None, :]
+    dloga = after_yz - z + before + (dec * ddec)[..., None, :]
 
     def unchunk(a):
-        return a.permute(0, 2, 3, 1, 4).reshape(b, nc * L, h, dk)[:, :s]
+        return a[:, :, :, :L].permute(0, 2, 3, 1, 4) \
+            .reshape(b, nc * L, h, dk)[:, :s]
     return (*map(unchunk, (dr, dkk, dv, dloga)), du, G)

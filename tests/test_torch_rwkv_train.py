@@ -115,7 +115,8 @@ def test_wkv6_bwd_ref_ragged_matches_float64_oracle(s, dk, chunk):
 @pytest.mark.parametrize("scale", [0.5, 1.5, 2.5])
 @pytest.mark.parametrize("s,dk,chunk", [(128, 64, 64), (128, 32, 32),
                                         (128, 16, 16), (200, 64, 64),
-                                        (40, 32, 64)])
+                                        (40, 32, 64), (200, 32, 24),
+                                        (130, 16, 40)])
 def test_wkv6_bwd_two_pass_matches_float64_oracle(s, dk, chunk, scale):
     """The kernel's decomposition takes every decay over its own range, so
     it holds the float64 oracle at steep decays too (loga down to about
@@ -127,6 +128,20 @@ def test_wkv6_bwd_two_pass_matches_float64_oracle(s, dk, chunk, scale):
     nc = -(-s // chunk)
     assert dstates.shape == (2, 2, nc, dk, dk)
     assert not dstates[:, :, -1].any()
+    for name, g, e in zip(GRADS, got, _exact(args)):
+        _close(g.numpy(), e.numpy(), name)
+
+
+@pytest.mark.parametrize("s,chunk", [(192, 64), (150, 40), (100, 24)])
+def test_wkv6_bwd_two_pass_reset_on_sub_chunk_edge(s, chunk):
+    """Resets on the first token of a sub-chunk (16 and 32 tokens into a
+    chunk), where a block below the diagonal is cut off whole and a
+    diagonal block starts a segment, and one on a chunk's last token."""
+    args = _inputs(2, 2, s, 16, scale=1.5)
+    reset = args[5]
+    reset[0, 16] = reset[0, chunk + 32] = reset[1, 2 * chunk - 1] = True
+    *got, _ = ref.wkv6_bwd_two_pass(*map(torch.from_numpy, args),
+                                    chunk=chunk)
     for name, g, e in zip(GRADS, got, _exact(args)):
         _close(g.numpy(), e.numpy(), name)
 

@@ -1,4 +1,4 @@
-"""Time a variant of one of the port's attention kernels against the
+"""Time a variant of one of the port's kernels against the
 committed one in turns, on one NVIDIA card.
 
     git show <commit>:src/repro_torch/kernels/csrc/packed_attention.cu \\
@@ -8,6 +8,9 @@ committed one in turns, on one NVIDIA card.
     git show <commit>:src/repro_torch/kernels/csrc/packed_attention_bwd.cu \\
         > _archive/packed_attention_bwd_variant.cu
     python3 tools/time_in_turns.py bwd _archive/packed_attention_bwd_variant.cu
+    git show <commit>:src/repro_torch/kernels/csrc/wkv6_bwd.cu \\
+        > _archive/wkv6_bwd_variant.cu
+    python3 tools/time_in_turns.py wkv6_bwd _archive/wkv6_bwd_variant.cu
 
 The variant is built with the port's nvcc flags into
 ``build/repro_torch_kernels/variants/`` and loaded with ctypes.  Each of
@@ -19,6 +22,13 @@ CUDA graph (``chip_smoke._time_ms``) over four sets of inputs.
 variant, the committed kernel as the serve path calls it (no lse) and as
 the training path calls it (with lse).  ``--no-lse-arg`` takes the C
 interface from before the forward had an ``lse`` argument.
+
+``wkv6_bwd``: the WKV6 backward kernel on the first batch of chip_smoke's
+rwkv6-3b trainer phase (4 x 1024, 40 heads of 64, chunk 64; the data
+plane stood up for one step's segment ids); the variant (e.g. an older
+commit's ``wkv6_bwd.cu``) has the committed C interface.  The runs are the
+variant and the committed kernel; after the rounds one pass of each under
+``torch.profiler`` gives each of its launches' device time.
 
 ``bwd``: the backward kernel at the training shape (``chip_smoke.
 _bwd_sets`` on the data plane's documents); the variant has the committed
@@ -37,7 +47,6 @@ import argparse
 import ctypes
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -145,22 +154,22 @@ def run_fwd(smi: str, src: str, no_lse_arg: bool) -> dict:
     return _summary(smi, [b, s, h, kh, d], _in_turns(pa, runs, sets, 40))
 
 
-def _launch_ms(module, kernel, sets: list, calls: int) -> dict:
-    """Device ms of each launch a call makes, from torch.profiler over
-    ``calls`` eager calls of ``kernel``."""
-    from torch.profiler import ProfilerActivity, profile
+def _launch_ms(module, kernel, fn, sets: list, calls: int) -> dict:
+    """Device ms of each launch a call of ``fn`` makes with
+    ``module._kernel`` set to ``kernel``, from torch.profiler over
+    ``calls`` eager calls."""
     committed = module._kernel()
     module._kernel = lambda: kernel
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(calls):
-            module.packed_attention_bwd(*sets[i % len(sets)])
-        torch.cuda.synchronize()
+    split = cs._launch_split_ms(fn, sets, calls)
     module._kernel = lambda: committed
-    return {(re.search(r"(\w+_kernel)", e.key) or [e.key[:60]])[0]:
-            e.self_device_time_total / 1e3 / calls
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    return split
+
+
+def _print_split(times: dict, launch_ms: dict):
+    for name, split in launch_ms.items():
+        print(f"[turns] {name}: whole call {statistics.fmean(times[name]):.5f}"
+              " ms; each launch under the profiler: " + ", ".join(
+                  f"{k} {v:.5f}" for k, v in split.items()), flush=True)
 
 
 def run_bwd(smi: str, src: str) -> dict:
@@ -192,20 +201,68 @@ def run_bwd(smi: str, src: str) -> dict:
     order = ("variant", "committed", "committed dq", "committed dkdv")
     times = _in_turns(pab, {n: (kernels[n], pab.packed_attention_bwd)
                             for n in order}, sets, 20)
-    launch_ms = {n: _launch_ms(pab, kernels[n], sets, 40)
-                 for n in ("variant", "committed")}
-    for name, split in launch_ms.items():
-        print(f"[turns] {name}: whole call {statistics.fmean(times[name]):.5f}"
-              " ms; each launch under the profiler: " + ", ".join(
-                  f"{k} {v:.5f}" for k, v in split.items()), flush=True)
+    launch_ms = {n: _launch_ms(pab, kernels[n], pab.packed_attention_bwd,
+                               sets, 40) for n in ("variant", "committed")}
+    _print_split(times, launch_ms)
     return _summary(smi, [*seg.shape, cfg.num_heads, cfg.num_kv_heads,
                           cfg.resolved_head_dim()], times,
                     launch_ms_profiler=launch_ms, max_abs_diff=diff)
 
 
+def _rwkv_trainer_first_seg(cfg):
+    """The segment ids of the first global batch that the rwkv6-3b trainer
+    phase of chip_smoke.py draws from its data plane
+    (``chip_smoke._trainer_plane`` under ``backbone_balance``, assembled as
+    ``Trainer._assemble_global_batch`` assembles step 0)."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="turns_sources_") as root:
+        ov = cs._trainer_plane(root, cfg, "backbone_balance")
+        try:
+            ov.start()
+            bins = []
+            for rank in ov.tree.data_fetching_clients("DP"):
+                view = ov.get_batch(0, rank)
+                if view["role"] == "data" and view.get("cp_rank", 0) == 0:
+                    bins.extend(view["bins"])
+        finally:
+            ov.shutdown()
+    return np.concatenate([p.segment_ids for p in bins], 0)
+
+
+def run_wkv6_bwd(smi: str, src: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wkv6_bwd as wb
+    committed = wb._kernel()
+    fn = _build_variants({"variant": (src, [])})["variant"].wkv6_bwd_launch
+    fn.argtypes, fn.restype = committed.argtypes, ctypes.c_int
+    kernels = {"variant": fn, "committed": committed}
+    cfg = get_config(cs.RWKV_ARCH).replace(num_layers=cs.RWKV_TRAIN_LAYERS)
+    seg = _rwkv_trainer_first_seg(cfg)
+    sets = cs._wkv6_bwd_sets(cfg, seg)
+
+    def call(*a):
+        return wb.wkv6_bwd(*a, chunk=cfg.rwkv_chunk)
+    outs = {}
+    for name in ("variant", "committed"):
+        wb._kernel = lambda k=kernels[name]: k
+        outs[name] = call(*sets[0])
+    wb._kernel = lambda: committed
+    diff = max((a - b).abs().max().item()
+               for a, b in zip(outs["variant"], outs["committed"]))
+    print(f"[turns] variant vs committed dr, dk, dv, dloga, du max abs diff "
+          f"{diff:.3e}", flush=True)
+    times = _in_turns(wb, {n: (kernels[n], call) for n in kernels}, sets, 20)
+    launch_ms = {n: _launch_ms(wb, kernels[n], call, sets, 20)
+                 for n in kernels}
+    _print_split(times, launch_ms)
+    h = cfg.d_model // cfg.rwkv_head_dim
+    return _summary(smi, [*seg.shape, h, cfg.rwkv_head_dim, cfg.rwkv_chunk],
+                    times, launch_ms_profiler=launch_ms, max_abs_diff=diff)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("kernel", choices=["fwd", "bwd"])
+    parser.add_argument("kernel", choices=["fwd", "bwd", "wkv6_bwd"])
     parser.add_argument("variant", help="path of the variant .cu")
     parser.add_argument("--no-lse-arg", action="store_true",
                         help="fwd: the variant's C entry has no lse argument")
@@ -218,8 +275,10 @@ def main():
     print(f"[turns] nvidia-smi: {smi}", flush=True)
     if args.kernel == "fwd":
         result = run_fwd(smi, args.variant, args.no_lse_arg)
-    else:
+    elif args.kernel == "bwd":
         result = run_bwd(smi, args.variant)
+    else:
+        result = run_wkv6_bwd(smi, args.variant)
     print(json.dumps(result))
 
 
