@@ -9,6 +9,8 @@
     python3 chip_smoke.py --only moe
     python3 chip_smoke.py --only rwkvtrain
     python3 chip_smoke.py --only dense
+    python3 chip_smoke.py --only hybrid
+    python3 chip_smoke.py --only audio
 
 Phases (any failure raises, and the exit code is not 0):
   1. device  — the card's name, count and power limit; no card, no run.
@@ -65,7 +67,20 @@ Phases (any failure raises, and the exit code is not 0):
                backward held to the version that rounds where it rounds,
                and to SDPA's distance from the float32 oracle) and
                yi-9b's, the backward's time at granite-20b's heads, and
-               the three reduced configs on the card against the CPU.
+               the three reduced configs on the card against the CPU.  The
+               hybrid's checks: the three attention kernels at zamba2-7b's
+               heads (32 on 32 of 112) with packed segments, ragged tails,
+               short segments and its serve and training shapes; reduced
+               zamba2-7b on the card against the CPU (forward, prefill
+               logits and Mamba2 states, greedy tokens); 2 full-width
+               layers (attn_every 1) against plain attention; memorising.
+               The audio family's: the attention kernels at whisper-medium's
+               shapes (the encoder's non-causal 1500 x 1500, the decoder's
+               cross-attention of 512 and 1024 queries on 1500 keys,
+               forward in both dtypes and backward; flash_decode on a
+               1500-frame cross cache); reduced whisper-medium on the card
+               against the CPU, decode against the prefill's cross cache
+               included; memorising.
   4. serve   — ``repro_torch.launch.serve`` on qwen3-8b (36 layers, d_model
                4096), on rwkv6-3b (32 layers, d_model 2560) and on the
                paper's VLM backbone paper-llama-12b (45 layers, d_model
@@ -80,7 +95,12 @@ Phases (any failure raises, and the exit code is not 0):
                memory: 48 layers drawn in float32 are 120 GB); then the
                rest of the dense family: yi-9b at full width and depth,
                granite-20b with 28 of 52 layers and qwen3-32b with 31 of 64
-               (cuts for memory).  Every
+               (cuts for memory); then zamba2-7b (81 Mamba2 layers and 13
+               applications of one shared attention block) and
+               whisper-medium (float32 frame embeddings of 1500 frames; then
+               4 decode steps against the prefill's real cross cache, which
+               the serve flow never reads, ROADMAP C5) at full width and
+               depth.  Every
                kernel's launch count is set to 0 just before each run and
                read just after; the counts must show the path went through
                the kernels.
@@ -127,6 +147,15 @@ Phases (any failure raises, and the exit code is not 0):
                fetch times, peak memory, a profiled step, the strict ledger.
  14. dense-trainer — qwen3-32b at full width with 4 of its 64 layers
                trained the same way: the attention backward at d 80.
+ 15. hybrid-trainer — zamba2-7b at full width with 15 of its 81 layers
+               (two blocks of 6 and the 3-layer tail; a cut for memory)
+               trained the same way: the attention kernels at d 112 once a
+               block a step, the Mamba2 scan in eager float32.
+ 16. whisper-train — whisper-medium at full width and depth, 5 steps on a
+               fixed batch (4 x 1024 decoder tokens, bf16 frame embeddings
+               of 1500 frames): 72 forward and 72 backward attention
+               launches a step, the encoder's and the cross-attention's
+               non-causal.
  10. loss    — phase 8's model trained for 19 steps from phase 8's plane
                drawing its tokens from 4,096 ids (the model keeps its
                151,936): the loss must close a share of its gap to
@@ -153,6 +182,9 @@ every path
 ``serve:qwen3-32b:31-of-64-layers`` the dense ones,
 ``trainer:rwkv6-3b:24-of-32-layers`` phase 13,
 ``trainer:qwen3-32b:4-of-64-layers`` phase 14,
+``serve:zamba2-7b`` and ``serve:whisper-medium`` the last two families'
+serve runs, ``trainer:zamba2-7b:15-of-81-layers`` phase 15,
+``train:whisper-medium`` phase 16,
 ``loss:qwen3-8b:data-vocab-4096`` phase 10,
 ``example:train_e2e_torch`` phase 11), each read from its own zeroed run;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -187,6 +219,19 @@ two wkv6 kernels' records on phase 13's first batch.
 its three serve runs and their traces, phase 14, and the three attention
 records at qwen3-32b's shapes (the forward and the backward on phase 14's
 first batch) and ``flash_decode`` at granite-20b's heads.
+``--only hybrid`` is the short loop for the hybrid family: phase 1, the
+builds of the five kernels, the hybrid's checks, the zamba2-7b serve run
+and its traces, phase 15, and the five records: the forward and the
+backward on phase 15's first batch, ``flash_decode`` at zamba2-7b's heads,
+and the two wkv6 kernels at their own shapes (``launches`` null: no path
+here runs them).
+``--only audio`` is the short loop for the audio family: phase 1, the
+builds of the five kernels, the audio family's checks, the whisper-medium
+serve run, its decode against the real cross cache and its traces, phase
+16, and the five records: the forward at the served encoder's shape
+(float32, 1500 on 1500, non-causal), ``flash_decode`` on the 1500-frame
+cross cache, the backward at the training cross-attention's (1024 on
+1500), and the two wkv6 kernels as in ``--only hybrid``.
 ``--only bwd`` is the short loop for the backward kernel: phase 1, the
 builds of packed_attention and packed_attention_bwd, the backward checks,
 and the backward's record at the training shape with the live tile pairs
@@ -286,6 +331,21 @@ RWKV_TRAIN_PATH = f"trainer:{RWKV_ARCH}:{RWKV_TRAIN_LAYERS}-of-32-layers"
 QWEN32_TRAIN_PATH = f"trainer:{QWEN32_ARCH}:{QWEN32_TRAIN_LAYERS}-of-64-layers"
 GRANITE20_SERVE_PATH = (f"serve:{GRANITE20_ARCH}:"
                         f"{DENSE_SERVE_LAYERS[GRANITE20_ARCH]}-of-52-layers")
+# the last two families.  zamba2-7b (81 Mamba2 layers, one shared attention
+# block of 32 heads of 112 after every 6): served at full width and depth;
+# trained from phase 8's plane with ZAMBA_TRAIN_LAYERS of its 81 layers (a
+# cut for memory: two blocks of 6 and the full model's 3-layer tail; 16 B a
+# parameter is 25.7 GB before the activations, which the eager chunked scan
+# keeps per chunk).  whisper-medium (24 encoder and 24 decoder layers, 16
+# heads of 64, 1500 frames): served at full width and depth with float32
+# enc_embeds, as the JAX launcher feeds them; trained on a fixed batch, as
+# the JAX package trains it, with bf16 enc_embeds (model_zoo.input_specs'
+# dtype; the float32 attention kernel has no backward)
+ZAMBA_ARCH, ZAMBA_PARAMS = "zamba2-7b", 6_750_498_384
+ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_PARAMS = 15, 1_604_461_488
+ZAMBA_TRAIN_PATH = f"trainer:{ZAMBA_ARCH}:{ZAMBA_TRAIN_LAYERS}-of-81-layers"
+WHISPER_ARCH, WHISPER_PARAMS = "whisper-medium", 811_358_208
+WHISPER_TRAIN_PATH = f"train:{WHISPER_ARCH}"
 # the full-width loss: phase 8's model (vocab 151,936) on phase 8's plane
 # drawing its tokens uniformly from [1, LOSS_VOCAB), within the sources'
 # first pass (LOSS_STEPS < 20 at 96 samples a step); the mean of the last
@@ -1226,16 +1286,16 @@ def _plain_attention():
         ops.packed_attention = kernel
 
 
-def _check_full_width_grads(arch: str = ARCH):
-    """``arch`` (qwen3-8b unless named) at full width with 2 layers, one
-    packed batch of 2 x 1024: the loss and every leaf's gradient with the
-    kernels against the plain attention on the same weights (relative L2
-    <= GRAD_REL_L2)."""
+def _check_full_width_grads(arch: str = ARCH, **cut):
+    """``arch`` (qwen3-8b unless named) at full width with 2 layers (or the
+    config fields ``cut`` gives), one packed batch of 2 x 1024: the loss
+    and every leaf's gradient with the kernels against the plain attention
+    on the same weights (relative L2 <= GRAD_REL_L2)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import build_model
     from repro_torch.models.params import tree_leaves
     from repro_torch.train.train_step import init_train_state, make_loss_fn
-    cfg = get_config(arch).replace(num_layers=2)
+    cfg = get_config(arch).replace(**(cut or {"num_layers": 2}))
     model = build_model(cfg, torch.Generator(device="cuda").manual_seed(5))
     state = init_train_state(model)
     rng = np.random.default_rng(5)
@@ -1254,20 +1314,21 @@ def _check_full_width_grads(arch: str = ARCH):
     _zero_launch_counts()
     loss_k, grads_k = run()
     counts = _launch_counts()
-    if counts["packed_attention"] != 2 or counts["packed_attention_bwd"] != 2:
-        raise AssertionError(f"2-layer step launched {counts}")
+    if counts != _train_want(cfg, 1):
+        raise AssertionError(f"{cfg.num_layers}-layer step launched {counts}")
     with _plain_attention():
         loss_p, grads_p = run()
     if _launch_counts() != counts:
         raise AssertionError("the plain run launched a kernel")
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    log(f"[check] {arch} 2 layers full width, kernels vs plain attention: "
+    tag = f"{arch} {cut or '2 layers'} full width"
+    log(f"[check] {tag}, kernels vs plain attention: "
         f"loss {loss_k:.6f} vs {loss_p:.6f} relative {rel:.3e} (limit "
         f"{LOSS_REL_TOL:g}) {'ok' if rel <= LOSS_REL_TOL else 'FAIL'}")
     worst = max(((torch.linalg.vector_norm(grads_k[n] - grads_p[n])
                   / torch.linalg.vector_norm(grads_p[n])).item(), n)
                 for n in grads_p)
-    log(f"[check] {arch} 2 layers full width, kernels vs plain attention: "
+    log(f"[check] {tag}, kernels vs plain attention: "
         f"worst gradient relative L2 {worst[0]:.3e} ({worst[1]}; limit "
         f"{GRAD_REL_L2:g}) {'ok' if worst[0] <= GRAD_REL_L2 else 'FAIL'}")
     if rel > LOSS_REL_TOL or not worst[0] <= GRAD_REL_L2:
@@ -1279,7 +1340,9 @@ def _check_memorise(module: str = "qwen3_8b"):
     """A reduced config (qwen3-8b, head_dim 16, unless ``module`` names
     another) memorises one batch on the card through the kernels: the loss
     falls below 0.8x its first value in 12 steps (tests/test_train.py:
-    50-66); a MoE config's aux losses are logged."""
+    50-66); a MoE config's aux losses are logged; an audio config's batch
+    carries bf16 frame embeddings (the float32 attention kernel, which
+    float32 ones would run the encoder on, has no backward)."""
     import importlib
     from repro_torch.models.model_zoo import build_model
     from repro_torch.train.optimizer import AdamWConfig
@@ -1292,7 +1355,10 @@ def _check_memorise(module: str = "qwen3_8b"):
                                               total_steps=100))
     seg = np.ones((4, 64), np.int32)       # make_lm_batch(cfg, 4, 64)
     seg[:, 30:60], seg[:, 60:] = 2, 0
-    batch = _lm_batch(np.random.default_rng(3), cfg.vocab_size, seg)
+    rng = np.random.default_rng(3)
+    batch = _lm_batch(rng, cfg.vocab_size, seg)
+    if cfg.family == "audio":
+        batch["enc_embeds"] = _frames(rng, 4, cfg, torch.bfloat16)
     _zero_launch_counts()
     losses, auxes = [], []
     for _ in range(12):
@@ -1749,6 +1815,210 @@ def phase_check_dense():
     torch.cuda.empty_cache()
 
 
+# -------------------------------------------- 3. hybrid and audio checks
+def _frames(rng, b: int, cfg, dtype) -> torch.Tensor:
+    """(b, encoder_frames, d_model) stub frame embeddings on the card, at
+    the serve launcher's scale (normal x 0.02), in ``dtype``."""
+    x = rng.normal(size=(b, cfg.encoder_frames, cfg.d_model)) * 0.02
+    return torch.tensor(x, dtype=torch.float32, device="cuda").to(dtype)
+
+
+def _check_hybrid_attention():
+    """The attention kernels at zamba2-7b's heads (32 on 32 of 112: a head
+    dim no other cell runs, through the forward's and the backward's
+    128-wide instances with 16 zero columns, over rows of 224 B) before any
+    zamba2 phase: the forward in both dtypes at s 1000 with packed
+    segments, at ragged tails (1, 63, 65 rows), on short segments, at its
+    serve shape (4 x 512, one segment a row) and at its training shape (4 x
+    1024, the data plane's documents); the backward at s 1000, a ragged
+    tail, short segments and the training shape; flash_decode on its
+    serve cache's length with ragged lengths."""
+    rng = np.random.default_rng(25)
+    bf, h, d, what = torch.bfloat16, 32, 112, f" {ZAMBA_ARCH} heads"
+    short = np.repeat(np.arange(1, 301), rng.integers(3, 40, 300))[:300]
+    short = np.stack([short, short]).astype(np.int32)
+    serve = np.ones((BATCH, PROMPT), np.int32)
+    train = _data_plane_segs(rng, TRAIN_BATCH, TRAIN_SEQ)
+    for dt in TOL:
+        seg = _segs(rng, 2, 1000)
+        _check_pa(rng, 2, h, h, 1000, 1000, d, dt, True, seg, seg, what)
+        _check_pa(rng, BATCH, h, h, PROMPT, PROMPT, d, dt, True, serve,
+                  serve, what + ", serve shape")
+    for s in (1, 63, 65):
+        seg = _segs(rng, 2, s) if s > 16 else np.ones((2, s), np.int32)
+        _check_pa(rng, 2, h, h, s, s, d, bf, True, seg, seg, what)
+    _check_pa(rng, 2, h, h, 300, 300, d, bf, True, short, short,
+              what + ", short segments")
+    _check_pa(rng, TRAIN_BATCH, h, h, TRAIN_SEQ, TRAIN_SEQ, d, bf, True,
+              train, train, what + ", training shape")
+    for seg in (_segs(rng, 2, 1000), _segs(rng, 2, 65), short):
+        s = seg.shape[1]
+        _check_pa_bwd(rng, 2, h, h, s, s, d, True, seg, seg, what)
+    _check_pa_bwd(rng, TRAIN_BATCH, h, h, TRAIN_SEQ, TRAIN_SEQ, d, True,
+                  train, train, what + ", training shape")
+    S = PROMPT + GEN
+    _check_fd(rng, BATCH, h, h, S, d, _edge_lens(BATCH, h, h, S))
+
+
+def _check_audio_attention():
+    """The attention kernels at whisper-medium's shapes (16 on 16 heads of
+    64, every segment id 1) before any Whisper phase: the encoder's
+    non-causal self-attention over 1500 frames (23 tiles of 64 and a
+    ragged 28) in float32 (the served encoder's) and bf16 (training's),
+    and the decoder's cross-attention, 512 (serve) and 1024 (training)
+    queries against the 1500 frames, non-causal, forward in both dtypes
+    and backward; flash_decode on a (layers, b, 1500, kh, hd) cross cache
+    read by strides, full and at edge lengths."""
+    from repro_torch.configs import get_config
+    rng = np.random.default_rng(26)
+    F_ = get_config(WHISPER_ARCH).encoder_frames
+    b, h, d = BATCH, 16, 64
+
+    def ones(s):
+        return np.ones((b, s), np.int32)
+    for sq in (F_, PROMPT, TRAIN_SEQ):
+        what = " whisper encoder" if sq == F_ else " whisper cross-attention"
+        for dt in TOL:
+            _check_pa(rng, b, h, h, sq, F_, d, dt, False, ones(sq), ones(F_),
+                      what)
+        _check_pa_bwd(rng, b, h, h, sq, F_, d, False, ones(sq), ones(F_),
+                      what)
+    _check_fd(rng, b, h, h, F_, d, [F_] * b)
+    _check_fd(rng, b, h, h, F_, d, _edge_lens(b, h, h, F_))
+
+
+def _positions(seg: np.ndarray) -> np.ndarray:
+    """Positions restarting at every segment (0 on padding)."""
+    pos = np.zeros_like(seg)
+    for i, row in enumerate(seg):
+        for sid in np.unique(row[row > 0]):
+            idx = np.flatnonzero(row == sid)
+            pos[i, idx] = np.arange(len(idx))
+    return pos
+
+
+def _check_reduced_family(module: str, seed: int):
+    """A reduced zamba2-7b or whisper-medium, float32, with the kernels on
+    the card against the plain versions on the CPU, same weights (and
+    frame embeddings): the forward on a packed batch (two segments and
+    padding); the prefill's logits and every cache leaf (the Mamba2 states,
+    the k/v of the shared block or of Whisper's self- and
+    cross-attention); the prompt replayed through ``decode_step`` on a
+    fresh cache, as the serve flow runs it, and 8 greedy tokens (the CPU
+    is fed the card's tokens, and its own argmax must pick them).  For
+    Whisper also 8 decode steps against the prefill's own cross cache, which
+    the serve flow never reads (ROADMAP C5), held to the CPU's and, on the
+    card, to the forward over the same tokens at the bf16 tolerance (the
+    cross cache is bf16).  Logits and float32 leaves to 2e-3, bf16 leaves
+    to the bf16 tolerance."""
+    import importlib
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import tree_leaves
+    cfg = importlib.import_module(f"repro_torch.configs.{module}").reduced()
+    gpu = build_model(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    cpu = build_model(cfg, torch.Generator().manual_seed(seed))
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(seed)
+    b, s, gen = 2, 32, 8
+    audio = cfg.family == "audio"
+    tokens = rng.integers(1, cfg.vocab_size, (b, s))
+    packed = np.ones((b, s), np.int32)
+    packed[:, 20:], packed[:, -3:] = 2, 0
+    frames = _frames(rng, b, cfg, torch.float32) if audio else None
+    outs, greedy = {}, None
+    with torch.no_grad():
+        for name, m in (("card", gpu), ("CPU", cpu)):
+            dev = m.device
+
+            def batch(seg, toks=tokens):
+                out = {k: torch.as_tensor(v, dtype=torch.int32, device=dev)
+                       for k, v in (("tokens", toks), ("segment_ids", seg),
+                                    ("positions", _positions(seg)))}
+                if audio:
+                    out["enc_embeds"] = frames.to(dev)
+                return out
+            got = {"forward on a packed batch": m(batch(packed))[0]}
+            one = np.ones((b, s), np.int32)
+            got["prefill logits"], cache = m.prefill(batch(one))
+            got.update((f"prefill cache {path}", t)
+                       for path, t in tree_leaves(cache) if t.numel())
+            dec = m.init_cache(b, s + gen, torch.float32)
+            toks = batch(one)["tokens"]
+            for t in range(s):
+                logits, dec = m.decode_step(dec, toks[:, t:t + 1], t)
+            steps, picked = [logits], []
+            for t in range(s, s + gen):
+                picked.append(torch.argmax(logits[:, -1:], -1).to(
+                    torch.int32).cpu())
+                feed = picked[-1] if greedy is None \
+                    else greedy[:, t - s:t - s + 1]
+                logits, dec = m.decode_step(dec, feed.to(dev), t)
+                steps.append(logits)
+            got["prompt replay + greedy decode logits"] = torch.cat(steps, 1)
+            picked = torch.cat(picked, 1)
+            if greedy is None:
+                greedy = picked
+            elif not torch.equal(picked, greedy):
+                raise AssertionError(f"reduced {cfg.name}: greedy tokens "
+                                     f"{picked.tolist()} on the CPU, "
+                                     f"{greedy.tolist()} on the card")
+            if audio:
+                real = m.init_cache(b, s + gen, torch.float32)
+                for n in ("k", "v"):
+                    real[n][:, :, :s] = cache[n]
+                for n in ("cross_k", "cross_v"):
+                    real[n].copy_(cache[n])
+                steps = []
+                for t in range(s, s + gen):
+                    logits, real = m.decode_step(
+                        real, greedy[:, t - s:t - s + 1].to(dev), t)
+                    steps.append(logits)
+                key = "decode against the prefill's cross cache"
+                got[key] = torch.cat(steps, 1)
+                if name == "card":
+                    full = batch(np.ones((b, s + gen), np.int32),
+                                 np.concatenate([tokens, greedy.numpy()], 1))
+                    _check(f"reduced {cfg.name} on the card: {key} vs the "
+                           "forward over the same tokens",
+                           got[key], m(full)[0][:, s:],
+                           TOL[torch.bfloat16])
+            outs[name] = {k: v.cpu() for k, v in got.items()}
+    for key, got in outs["card"].items():
+        _check(f"reduced {cfg.name}, card vs CPU plain: {key}", got,
+               outs["CPU"][key], TOL[torch.bfloat16]
+               if got.dtype == torch.bfloat16 else 2e-3)
+    log(f"[check] reduced {cfg.name}: greedy tokens {greedy.tolist()} on "
+        "the card and the CPU")
+
+
+def phase_check_hybrid():
+    """The hybrid's card checks: the attention kernels at zamba2-7b's heads,
+    reduced zamba2-7b on the card against the CPU, 2 full-width layers
+    (attn_every 1: a Mamba2 layer then the shared block, twice, so its
+    gradient sums two backward launches) against plain attention, and
+    reduced zamba2-7b memorising one batch."""
+    import gc
+    _check_hybrid_attention()
+    _check_reduced_family("zamba2_7b", 8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_full_width_grads(ZAMBA_ARCH, num_layers=2, attn_every=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_memorise("zamba2_7b")
+
+
+def phase_check_audio():
+    """The audio family's card checks: the attention kernels at
+    whisper-medium's shapes, reduced whisper-medium on the card against
+    the CPU (decode against the prefill's cross cache included), and
+    reduced whisper-medium memorising one batch."""
+    _check_audio_attention()
+    _check_reduced_family("whisper_medium", 9)
+    torch.cuda.empty_cache()
+    _check_memorise("whisper_medium")
+
+
 # ------------------------------------------------------------- 4. serve
 KERNEL_NAMES = ("packed_attention", "packed_attention_bwd", "flash_decode",
                 "wkv6", "wkv6_bwd")
@@ -1774,12 +2044,27 @@ def _want(**counts) -> dict:
     return {n: counts.get(n, 0) for n in KERNEL_NAMES}
 
 
+def _attention_calls(cfg) -> tuple[int, int]:
+    """(attention calls of one forward or prefill, of one decode step) of
+    ``cfg``: a layer's each, the hybrid's shared block once a block, and
+    Whisper's encoder layers and its decoder layers' self- and
+    cross-attention (decode: the decoder's two)."""
+    if cfg.family == "hybrid":
+        n = cfg.num_layers // cfg.attn_every
+        return n, n
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+    return cfg.num_layers, cfg.num_layers
+
+
 def _train_want(cfg, steps: int) -> dict:
     """The counts of ``steps`` training steps of ``cfg``: its forward and
-    backward kernel once a layer a step."""
-    n = cfg.num_layers * steps
+    backward kernel once an attention call (a layer's WKV for the ssm
+    family) a step."""
     if cfg.family == "ssm":
+        n = cfg.num_layers * steps
         return _want(wkv6=n, wkv6_bwd=n)
+    n = _attention_calls(cfg)[0] * steps
     return _want(packed_attention=n, packed_attention_bwd=n)
 
 
@@ -1816,11 +2101,11 @@ def phase_serve(arch: str, layers: int | None = None) -> tuple[dict, dict]:
         f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB)")
     log(f"[serve] {arch} greedy tokens: {out['tokens'].tolist()}")
     log(f"[serve] {arch} launches on the path: {counts}")
-    L = cfg.num_layers
     if cfg.family == "ssm":     # the WKV kernel once per layer, in prefill
-        want = _want(wkv6=L)
+        want = _want(wkv6=cfg.num_layers)
     else:
-        want = _want(packed_attention=L, flash_decode=L * (PROMPT + GEN))
+        pre, dec = _attention_calls(cfg)
+        want = _want(packed_attention=pre, flash_decode=dec * (PROMPT + GEN))
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
     for key in ("prefill_logits", "logits"):
@@ -1948,21 +2233,26 @@ def _time_packed_attention(cfg, launches: int,
                    err, ms, plain_ms, lib_ms, nbytes, flops, PEAK_FLOPS[dt])
 
 
-def _time_flash_decode(cfg, launches: int) -> dict:
+def _time_flash_decode(cfg, launches: int, S: int = PROMPT + GEN,
+                       layers: int | None = None) -> dict:
+    """At the serve cache's length S (the final decode step attends to all
+    of it), one call a layer of a (layers, b, S, kh, d) float32 cache, each
+    layer's slice read by strides; ``layers`` defaults to the attention
+    calls of a decode step."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode, ref
     b, h, kh, d = BATCH, cfg.num_heads, cfg.num_kv_heads, \
         cfg.resolved_head_dim()
-    S = PROMPT + GEN        # the final decode step attends to all of it
+    layers = layers or _attention_calls(cfg)[1]
     gen = torch.Generator(device="cuda").manual_seed(3)
-    shape = (cfg.num_layers, b, S, kh, d)   # the serve cache, float32
+    shape = (layers, b, S, kh, d)           # the serve cache, float32
     kc = torch.randn(shape, generator=gen, device="cuda")
     vc = torch.randn(shape, generator=gen, device="cuda")
     q = torch.randn((b, h, d), generator=gen, device="cuda").to(
         torch.bfloat16)
     clen = torch.full((b,), S, dtype=torch.int32, device="cuda")
     sets = [(q, kc[i].transpose(1, 2), vc[i].transpose(1, 2), clen)
-            for i in range(cfg.num_layers)]   # one layer's slice per call
+            for i in range(layers)]           # one layer's slice per call
     got = flash_decode.flash_decode(*sets[0])
     err = _check(f"flash_decode serve shape cache_len={clen.tolist()}", got,
                  ref.flash_decode_ref(*sets[0]), SERVE_DECODE_TOL)
@@ -2425,10 +2715,11 @@ def _row_stats(seg: np.ndarray) -> str:
             f"{sq.astype(int).tolist()} max/mean={sq.max() / sq.mean():.4f}")
 
 
-def _profiled(fn) -> tuple[str, float]:
+def _profiled(fn, top: int = 0) -> tuple[str, float]:
     """``fn()`` once under the profiler: wall ms, the device's busy ms and
     share, and its launches; returns them as text, and what ``fn``
-    returned."""
+    returned.  ``top``: also log the kernels that take the most device
+    time, that many."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2439,6 +2730,9 @@ def _profiled(fn) -> tuple[str, float]:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = _device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[trace]   {e.self_device_time_total / 1e3:9.4f} ms "
+            f"x{e.count:<5d} {e.key[:90]}")
     return (f"wall_ms={wall_ms:.3f} (profiler on) device_busy_ms="
             f"{busy_ms:.3f} busy_share={busy_ms / wall_ms:.4f} "
             f"kernel_launches={sum(e.count for e in kernels)} "
@@ -2616,14 +2910,15 @@ def _check_checkpoint_round_trip(trainer):
 
 
 def _train_from_plane(model, cfg, strategy: str, steps: int, lr: float,
-                      tag: str, vocab: int | None = None
+                      tag: str, vocab: int | None = None, top: int = 0
                       ) -> tuple[dict, list, list]:
     """``steps`` steps of ``model`` by the port's ``Trainer`` from a live
     ``_trainer_plane(strategy, vocab)``, with every kernel's count set to 0
     just before and read just after; each batch's rows and aux loss, the
     step and fetch times, the peak memory, one more step under the profiler
-    with its fetch in the window, and the strict ledger (which raises on a
-    sample lost or delivered twice).  Returns the counts, the records and
+    with its fetch in the window (``top``: its kernels that take the most
+    device time, logged), and the strict ledger (which raises on a sample
+    lost or delivered twice).  Returns the counts, the records and
     each batch's segment ids."""
     import collections
     import tempfile
@@ -2663,7 +2958,7 @@ def _train_from_plane(model, cfg, strategy: str, steps: int, lr: float,
                                                  assemble(steps))
                 trainer.state = state
                 return float(metrics["loss"])
-            traced, loss = _profiled(step_with_fetch)
+            traced, loss = _profiled(step_with_fetch, top)
             ov.step_done(steps, {"loss": loss})
             report = ov.ledger.verify(strict=True)
             drops = collections.Counter(
@@ -3276,11 +3571,366 @@ def main_dense():
                 own=train)]
 
 
+
+def phase_trainer_hybrid() -> tuple[dict, np.ndarray]:
+    """zamba2-7b at full width with ZAMBA_TRAIN_LAYERS of its 81 layers (two
+    blocks of 6, each closed by the one shared attention block, and the
+    3-layer tail) trained by the port's ``Trainer`` from phase 8's live
+    plane under ``backbone_balance`` (whose cost model charges attention on
+    ``num_layers // attn_every`` layers) for TRAINER_STEPS steps: the
+    attention kernels at d 112 once a block a step.  Returns the counts
+    and the first batch's segment ids."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[hybrid-trainer] memory_allocated before the phase: "
+        f"{torch.cuda.memory_allocated()} B")
+    cfg = get_config(ZAMBA_ARCH).replace(num_layers=ZAMBA_TRAIN_LAYERS)
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != ZAMBA_TRAIN_PARAMS:
+        raise AssertionError(f"{n_params} parameters, not "
+                             f"{ZAMBA_TRAIN_PARAMS}")
+    log(f"[hybrid-trainer] {ZAMBA_ARCH} layers={cfg.num_layers} of 81 "
+        f"(blocks of {cfg.attn_every} and a tail of "
+        f"{cfg.num_layers % cfg.attn_every}) d_model={cfg.d_model} "
+        f"heads={cfg.num_heads}/{cfg.num_kv_heads} of "
+        f"{cfg.resolved_head_dim()} ssm heads "
+        f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} chunk "
+        f"{cfg.ssm_chunk} params={n_params}; Overlord: coyo_like_specs(4), "
+        f"DP {TRAIN_BATCH} x 1 row x {TRAIN_SEQ}, samples_per_step "
+        f"{TRAINER_SAMPLES}, backbone_balance")
+    counts, _, segs = _train_from_plane(model, cfg, "backbone_balance",
+                                        TRAINER_STEPS, 1e-3,
+                                        "hybrid-trainer", top=10)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, segs[0]
+
+
+def phase_train_whisper() -> dict:
+    """whisper-medium at full width and depth, AdamW on float32 master
+    weights, TRAIN_STEPS steps through ``train_step`` on one fixed batch:
+    4 x 1024 decoder tokens (the data plane's documents, next-token
+    labels) and bf16 frame embeddings of 1500 frames, every kernel's count
+    set to 0 just before and read just after (72 forward and 72 backward
+    attention launches a step: 24 encoder, 24 self, 24 cross); step ms by
+    CUDA events, tokens/s, peak memory, then one step under the profiler.
+    Returns the counts."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(WHISPER_ARCH)
+    model = build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != WHISPER_PARAMS:
+        raise AssertionError(f"{n_params} parameters, not {WHISPER_PARAMS}")
+    state = init_train_state(model)
+    step = make_train_step(model, AdamWConfig(peak_lr=1e-3, warmup_steps=2,
+                                              total_steps=1000))
+    rng = np.random.default_rng(TRAIN_SEED)
+    seg = _data_plane_segs(rng, TRAIN_BATCH, TRAIN_SEQ)
+    batch = _lm_batch(rng, cfg.vocab_size, seg, next_token=True)
+    batch["enc_embeds"] = _frames(rng, TRAIN_BATCH, cfg, torch.bfloat16)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[whisper-train] {WHISPER_ARCH} encoder {cfg.encoder_layers} + "
+        f"decoder {cfg.num_layers} layers d_model={cfg.d_model} heads="
+        f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.resolved_head_dim()} "
+        f"params={n_params}; batch {TRAIN_BATCH}x{TRAIN_SEQ} decoder tokens "
+        f"({int((seg > 0).sum())} in documents), enc_embeds "
+        f"{tuple(batch['enc_embeds'].shape)} bf16")
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = _events(), _events()
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(metrics["loss"].item())
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steady = float(np.mean(step_ms[1:]))
+    log(f"[whisper-train] losses {losses}")
+    log(f"[whisper-train] step ms (CUDA events) "
+        f"{[round(t, 3) for t in step_ms]}; steps 2-{TRAIN_STEPS} mean "
+        f"{steady:.3f} ms, {tokens / steady * 1e3:.1f} decoder tokens/s")
+    log(f"[whisper-train] max_memory_allocated={peak} B "
+        f"({peak / 2**30:.2f} GiB); launches on the path: {counts}")
+
+    def one_step():
+        nonlocal state
+        state, metrics = step(state, batch)
+        return float(metrics["loss"])
+    traced, _ = _profiled(one_step, top=10)
+    log(f"[trace] {WHISPER_ARCH} train step, fixed batch: {traced}")
+    want = _train_want(cfg, TRAIN_STEPS)
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts} != expected {want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"whisper training losses {losses}")
+    del state, step, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _check_whisper_cross_decode(served: dict, steps: int = 4):
+    """At full width, after the serve run's counts were read: the serve
+    run's own bf16 model prefills its prompt again, the prefill's self k/v
+    and cross k/v go into a float32 cache of PROMPT + ``steps`` positions,
+    and ``steps`` decode steps read them, so flash_decode reads the
+    1500-frame cross cache's real values (the serve flow decodes against
+    zeros there, ROADMAP C5).  Their logits must be finite and must move
+    from those of the same steps on the same cache with its cross k/v
+    zeroed; their distance from the forward over the same tokens, and
+    the share of positions whose argmax agrees, are logged."""
+    prefill, decode, batch, model = (served[k] for k in (
+        "prefill", "decode", "batch", "model"))
+    _, kv = prefill(batch)
+    cache = model.init_cache(BATCH, PROMPT + steps, torch.float32)
+    for n in ("k", "v"):
+        cache[n][:, :, :PROMPT] = kv[n]
+    for n in ("cross_k", "cross_v"):
+        cache[n].copy_(kv[n])
+    zero = {n: t.clone() for n, t in cache.items()}
+    for n in ("cross_k", "cross_v"):
+        zero[n].zero_()
+    feed = batch["tokens"][:, :steps]          # any tokens: the same twice
+    real_logits, zero_logits = [], []
+    for t in range(steps):
+        real_logits.append(decode(cache, feed[:, t:t + 1], PROMPT + t)[0])
+        zero_logits.append(decode(zero, feed[:, t:t + 1], PROMPT + t)[0])
+    real, zeroed = torch.cat(real_logits, 1), torch.cat(zero_logits, 1)
+    full = dict(batch, tokens=torch.cat([batch["tokens"], feed], 1),
+                segment_ids=torch.ones((BATCH, PROMPT + steps),
+                                       dtype=torch.int32, device="cuda"),
+                positions=torch.arange(PROMPT + steps, dtype=torch.int32,
+                                       device="cuda").expand(BATCH, -1))
+    with torch.no_grad():
+        fwd = model(full)[0][:, PROMPT:].float()
+    moved = (real.float() - zeroed.float()).abs().max().item()
+    dist = (real.float() - fwd).abs().max().item()
+    agree = (real.argmax(-1) == fwd.argmax(-1)).float().mean().item()
+    ok = torch.isfinite(real.float()).all().item() and moved > 0
+    log(f"[check] {WHISPER_ARCH} full width, {steps} decode steps against "
+        f"the prefill's cross cache ({tuple(cache['cross_k'].shape)}): "
+        f"logits move by max {moved:.4e} from a zero cross cache's; vs the "
+        f"bf16 forward over the same tokens max abs {dist:.4e}, argmax "
+        f"agreeing at {agree:.4f} of positions (logged) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("decode against the prefill's cross cache: "
+                             "logits not finite, or the audio read nothing")
+
+
+def _time_cross_attention(cfg, launches, sq: int, dt) -> dict:
+    """packed_attention at a whisper-medium shape: BATCH rows of ``sq``
+    queries against its ``encoder_frames`` keys, non-causal, every segment
+    id 1 (sq = encoder_frames: the encoder's self-attention), in ``dt``
+    (float32: the served encoder's; bf16: the prefill's cross-attention
+    and training's), beside its plain version and SDPA (no mask: every
+    pair is valid)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import packed_attention, ref
+    h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    b, sk = BATCH, cfg.encoder_frames
+    rng = np.random.default_rng(27)
+    q_seg = torch.ones((b, sq), dtype=torch.int32, device="cuda")
+    kv_seg = torch.ones((b, sk), dtype=torch.int32, device="cuda")
+    sets = [(_bshd(rng, b, sq, h, d, dt), _bshd(rng, b, sk, kh, d, dt),
+             _bshd(rng, b, sk, kh, d, dt), q_seg, kv_seg) for _ in range(4)]
+
+    def kernel(*a):
+        return packed_attention.packed_attention(*a, causal=False)
+
+    def plain(*a):
+        return ref.packed_attention_ref(*a, causal=False)
+
+    def library(q, k, v, *_):
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+    got = kernel(*sets[0])
+    err = _check(f"packed_attention {b}x{sq} vs {sk} keys, non-causal, "
+                 f"{str(dt)[6:]}", got, plain(*sets[0]), TOL[dt])
+    q, k, v = sets[0][:3]
+    return _record("packed_attention", "packed_attention.cu",
+                   "src/repro/kernels/packed_attention.py:122", launches,
+                   err, _time_ms(kernel, sets, 20), _time_ms(plain, sets, 4),
+                   _time_ms(library, sets, 20),
+                   _nbytes(q, k, v, got, q_seg, kv_seg),
+                   4 * d * b * h * sq * sk, PEAK_FLOPS[dt])
+
+
+def _time_cross_attention_bwd(cfg, launches, sq: int) -> dict:
+    """packed_attention_bwd at a whisper-medium shape: BATCH rows of ``sq``
+    queries against its ``encoder_frames`` keys, non-causal, bf16, beside
+    its plain version and SDPA's backward (eager).  Bound as
+    ``_time_packed_attention_bwd``'s: 10 d FLOP a (q, k) pair, every
+    tensor moved once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import packed_attention, packed_attention_bwd
+    from repro_torch.kernels import ref
+    h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    b, sk, bf = BATCH, cfg.encoder_frames, torch.bfloat16
+    rng = np.random.default_rng(28)
+    q_seg = torch.ones((b, sq), dtype=torch.int32, device="cuda")
+    kv_seg = torch.ones((b, sk), dtype=torch.int32, device="cuda")
+    sets = []
+    for _ in range(4):
+        q, k, v = (_bshd(rng, b, sq, h, d, bf), _bshd(rng, b, sk, kh, d, bf),
+                   _bshd(rng, b, sk, kh, d, bf))
+        out, lse = packed_attention.packed_attention(
+            q, k, v, q_seg, kv_seg, causal=False, return_lse=True)
+        sets.append((q, k, v, out, lse, _bshd(rng, b, sq, h, d, bf), q_seg,
+                     kv_seg))
+
+    def kernel(*a):
+        return packed_attention_bwd.packed_attention_bwd(*a, causal=False)
+
+    def plain(*a):
+        return ref.packed_attention_bwd_ref(*a, causal=False)
+    got = kernel(*sets[0])
+    err = max(_check(f"packed_attention_bwd {b}x{sq} vs {sk} keys, "
+                     f"non-causal: {name}", g, e, TOL[bf])
+              for name, g, e in zip(("dq", "dk", "dv"), got,
+                                    plain(*sets[0])))
+    lib_sets = []
+    for q, k, v, _, _, dout, _, _ in sets:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_sets.append((F.scaled_dot_product_attention(
+            *leaves, enable_gqa=True), leaves, dout))
+
+    def library(o, leaves, dout):
+        return torch.autograd.grad(o, leaves, dout, retain_graph=True)
+    lib_ms = _time_eager_ms(library, lib_sets, 20)
+    q, k, v, out, lse, dout = sets[0][:6]
+    return _record("packed_attention_bwd", "packed_attention_bwd.cu",
+                   "none: JAX differentiates segment_attention, "
+                   "src/repro/models/attention.py:70", launches, err,
+                   _time_ms(kernel, sets, 20), _time_ms(plain, sets, 4),
+                   (lib_ms, lib_ms), _nbytes(q, k, v, out, dout, lse, *got),
+                   10 * d * b * h * sq * sk, PEAK_FLOPS[bf])
+
+
+def _wkv6_records(paths: dict) -> list:
+    """The two wkv6 kernels' records for a run whose paths launch neither
+    (their count on every path that ran is 0, and ``launches`` is null:
+    their own paths did not run): ``wkv6`` at rwkv6-3b's serve shape,
+    ``wkv6_bwd`` at its training shape on the data plane's documents."""
+    from repro_torch.configs import get_config
+    rwkv = get_config(RWKV_ARCH)
+    seg = _data_plane_segs(np.random.default_rng(TRAIN_SEED), TRAIN_BATCH,
+                           TRAIN_SEQ)
+    return [_with_paths(_time_wkv6(rwkv, None), paths),
+            _with_paths(_time_wkv6_bwd(rwkv, None, seg), paths)]
+
+
+def phase_serve_hybrid() -> dict:
+    """zamba2-7b at full width and depth (81 layers: 13 applications of the
+    shared block), with its prefill and decode traces.  Returns its
+    counts by path."""
+    path = f"serve:{ZAMBA_ARCH}"
+    counts, served = phase_serve(ZAMBA_ARCH)
+    phase_trace_prefill(ZAMBA_ARCH, served)
+    phase_trace_decode(ZAMBA_ARCH, served)
+    return {path: counts}       # frees the 13.5 GB of bf16 zamba2 weights
+
+
+def phase_serve_audio() -> dict:
+    """whisper-medium at full width and depth, then its decode against the
+    prefill's cross cache (``_check_whisper_cross_decode``), and its
+    prefill and decode traces.  Returns its counts by path."""
+    path = f"serve:{WHISPER_ARCH}"
+    counts, served = phase_serve(WHISPER_ARCH)
+    _check_whisper_cross_decode(served)
+    phase_trace_prefill(WHISPER_ARCH, served)
+    phase_trace_decode(WHISPER_ARCH, served)
+    return {path: counts}
+
+
+def main_hybrid():
+    """``--only hybrid``: the builds of the five kernels, the hybrid's card
+    checks (the attention kernels at d 112 first), the zamba2-7b serve run
+    and its traces, the zamba2-7b trainer phase, and the five kernels'
+    records: the forward and the backward on the trainer's first batch,
+    ``flash_decode`` at zamba2's heads, the two wkv6 kernels (no launch on
+    these paths)."""
+    from repro_torch.configs import get_config
+    phase_build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_check_hybrid()
+    paths = phase_serve_hybrid()
+    paths[ZAMBA_TRAIN_PATH], seg = phase_trainer_hybrid()
+    log(f"[done] launches by path: {paths}")
+    cfg, train, serve = (get_config(ZAMBA_ARCH), ZAMBA_TRAIN_PATH,
+                         f"serve:{ZAMBA_ARCH}")
+    return [_with_paths(_time_packed_attention(
+                cfg, paths[train]["packed_attention"], seg), paths,
+                own=train),
+            _with_paths(_time_flash_decode(
+                cfg, paths[serve]["flash_decode"]), paths, own=serve),
+            _with_paths(_time_packed_attention_bwd(
+                cfg, paths[train]["packed_attention_bwd"], seg), paths,
+                own=train),
+            *_wkv6_records(paths)]
+
+
+def main_audio():
+    """``--only audio``: the builds of the five kernels, the audio family's
+    card checks (the attention kernels at Whisper's shapes first), the
+    whisper-medium serve run with its decode against the real cross cache
+    and its traces, the fixed-batch training run, and the five kernels'
+    records: the forward at the served encoder's shape (float32, 1500 on
+    1500, non-causal), ``flash_decode`` on the 1500-frame cross cache, the
+    backward at the training cross-attention's (1024 on 1500), the two
+    wkv6 kernels (no launch on these paths)."""
+    from repro_torch.configs import get_config
+    phase_build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_check_audio()
+    paths = phase_serve_audio()
+    paths[WHISPER_TRAIN_PATH] = phase_train_whisper()
+    log(f"[done] launches by path: {paths}")
+    cfg, train, serve = (get_config(WHISPER_ARCH), WHISPER_TRAIN_PATH,
+                         f"serve:{WHISPER_ARCH}")
+    F_ = cfg.encoder_frames
+    cross = _time_cross_attention(cfg, None, PROMPT, torch.bfloat16)
+    log(f"[time] packed_attention at the served cross-attention's shape "
+        f"({BATCH}x{PROMPT} on {F_}, bf16): ms={cross['ms']:.4f} "
+        f"plain_ms={cross['plain_ms']:.4f} "
+        f"library_ms={cross['library_ms']:.4f} "
+        f"bound_ms={cross['bound_ms']:.4f} ({cross['bound_by']})")
+    return [_with_paths(_time_cross_attention(
+                cfg, paths[serve]["packed_attention"], F_, torch.float32),
+                paths, own=serve),
+            _with_paths(_time_flash_decode(
+                cfg, paths[serve]["flash_decode"], S=F_,
+                layers=cfg.num_layers), paths, own=serve),
+            _with_paths(_time_cross_attention_bwd(
+                cfg, paths[train]["packed_attention_bwd"], TRAIN_SEQ), paths,
+                own=train),
+            *_wkv6_records(paths)]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["wkv6", "train", "bwd",
                                            "trainer", "vlm", "moe",
-                                           "rwkvtrain", "dense"],
+                                           "rwkvtrain", "dense", "hybrid",
+                                           "audio"],
                         default=None, help="run only this path's builds, "
                         "checks and timing")
     args = parser.parse_args()
@@ -3293,7 +3943,8 @@ def main():
                    "bwd": main_bwd, "trainer": main_trainer,
                    "vlm": main_vlm, "moe": main_moe,
                    "rwkvtrain": main_rwkvtrain,
-                   "dense": main_dense}[args.only]()
+                   "dense": main_dense, "hybrid": main_hybrid,
+                   "audio": main_audio}[args.only]()
         log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {
@@ -3306,6 +3957,8 @@ def main():
     phase_check_moe()
     phase_check_rwkv_train()
     phase_check_dense()
+    phase_check_hybrid()
+    phase_check_audio()
     paths = {}          # each path's launch counts, from its own zeroed run
     paths[f"serve:{ARCH}"], served = phase_serve(ARCH)
     phase_trace_prefill(ARCH, served)
@@ -3321,12 +3974,16 @@ def main():
     del served          # frees the 32.9 GB of bf16 paper-llama-12b weights
     paths.update(phase_serve_moe())
     paths.update(phase_serve_dense())
+    paths.update(phase_serve_hybrid())
+    paths.update(phase_serve_audio())
     paths[f"train:{ARCH}"], seg = phase_train()
     paths[f"trainer:{ARCH}"], _ = phase_trainer()
     paths.update(phase_trainer_vlm()[0])
     paths[f"trainer:{TMOE_ARCH}"], _ = phase_trainer_moe()
     paths[RWKV_TRAIN_PATH], rwkv_seg = phase_trainer_rwkv()
     paths[QWEN32_TRAIN_PATH], _ = phase_trainer_dense()
+    paths[ZAMBA_TRAIN_PATH], _ = phase_trainer_hybrid()
+    paths[WHISPER_TRAIN_PATH] = phase_train_whisper()
     paths[f"loss:{ARCH}:data-vocab-{LOSS_VOCAB}"] = phase_loss()
     paths["example:train_e2e_torch"] = phase_example()
     log(f"[done] launches by path: {paths}")

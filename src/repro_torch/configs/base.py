@@ -2,10 +2,9 @@
 
 The port's own copy of ``repro.configs.base.ModelConfig``, so it imports
 nothing of ``repro``.  It holds only the fields the ported code reads, with
-the JAX package's names and defaults; the rest come with the slice that
-reads them.  The registry lists only the archs whose model code has been
-ported; asking for any other arch raises a ``KeyError`` that points at
-``ROADMAP.md``, where the rest are queued.
+the JAX package's names and defaults (its sharding, remat, kv-chunk and
+Pallas knobs have no counterpart here).  The registry holds every arch of
+the JAX package's; asking for any other raises a ``KeyError``.
 """
 from __future__ import annotations
 
@@ -32,11 +31,19 @@ class ModelConfig:
     num_experts: int = 0
     experts_per_token: int = 0
     capacity_factor: float = 1.25
+    # --- hybrid (Mamba2, models/ssm.py and models/hybrid.py) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
     attn_every: int = 0          # hybrid: shared attention every N layers
     # --- rwkv6 ---
     rwkv_head_dim: int = 64
     rwkv_chunk: int = 64
     rwkv_lora_dim: int = 64
+    # --- encoder-decoder (whisper, models/encdec.py) ---
+    encoder_layers: int = 0
+    encoder_frames: int = 1500   # whisper: 30s audio -> 1500 frames (stub)
     # --- vlm ---
     image_token_frac: float = 0.0  # fraction of sequence that is image embeds
 
@@ -68,8 +75,7 @@ def get_config(name: str) -> ModelConfig:
     key = name.replace("_", "-")
     if key not in _REGISTRY:
         raise KeyError(
-            f"arch {name!r} is not ported to repro_torch yet (ported: "
-            f"{sorted(_REGISTRY)}); see ROADMAP.md for the port's queue")
+            f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[key]
 
 
@@ -78,10 +84,10 @@ def list_configs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-# Config modules of the archs this port runs.
+# Config modules of the archs this port runs: all of the JAX package's.
 _PORTED = ["qwen3_8b", "rwkv6_3b", "pixtral_12b", "paper_vlm",
            "qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "yi_9b",
-           "granite_20b", "qwen3_32b"]
+           "granite_20b", "qwen3_32b", "zamba2_7b", "whisper_medium"]
 
 _LOADED = False
 

@@ -10,18 +10,27 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-3b-a800m --reduced --device cpu --batch 2 \
         --prompt-len 16 --gen 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --reduced --device cpu --batch 2 --prompt-len 16 --gen 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-medium --reduced --device cpu --batch 2 \
+        --prompt-len 16 --gen 4
 
 The port of ``repro.launch.serve``: the same CLI plus ``--device`` (default
 ``cuda``; without a card that raises unless ``--device cpu`` is given), and
 the same flow for every ported arch: prefill the prompt, then refill a
 fresh float32 cache (the KV cache of a dense model, the shift and WKV
-states of RWKV6) by replaying the prompt through ``decode_step``, then
-decode greedily.  A vlm arch's prompt also carries ``image_token_frac`` of
-its positions as image embeddings (the first ones of each row), drawn
-after the tokens from the same numpy generator, as the JAX launcher draws
-them; prefill fuses them, and the replay, as in the JAX launcher, feeds
-the tokens alone.  On the card attention and the WKV always run through the
-CUDA kernels.
+states of RWKV6, the Mamba2 states and the shared block's KV of the
+hybrid, the self and cross KV of Whisper) by replaying the prompt through
+``decode_step``, then decode greedily.  A vlm arch's prompt also carries
+``image_token_frac`` of its positions as image embeddings (the first ones
+of each row), and an audio arch's batch ``encoder_frames`` float32 frame
+embeddings, drawn after the tokens from the same numpy generator, as the
+JAX launcher draws them; prefill reads them, and the replay, as in the JAX
+launcher, feeds the tokens alone.  So a served Whisper decodes against a
+cross cache of zeros, never the audio: the JAX launcher's behaviour
+(ROADMAP.md, C5), kept so that the greedy tokens equal JAX's.  On the card
+attention and the WKV always run through the CUDA kernels.
 """
 from __future__ import annotations
 
@@ -86,6 +95,10 @@ def run(cfg, b: int, s: int, gen: int, device: torch.device) -> dict:
             size=(b, n, cfg.d_model)).astype(np.float32) * 0.02
         batch["image_positions"] = np.broadcast_to(
             np.arange(n, dtype=np.int32), (b, n)).copy()
+    if cfg.family == "audio":
+        batch["enc_embeds"] = rng.normal(
+            size=(b, cfg.encoder_frames, cfg.d_model)).astype(
+            np.float32) * 0.02
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
     # both steps share one bf16 cast of the weights; the fp32 tree is freed

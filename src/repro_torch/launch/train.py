@@ -9,6 +9,8 @@
         --arch qwen3-moe-30b-a3b --reduced --device cpu --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
         --reduced --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \
+        --reduced --device cpu --steps 3
 
 The port of ``repro.launch.train``: the same CLI and defaults plus
 ``--device`` (default ``cuda``; without a card that raises unless
@@ -18,10 +20,13 @@ plane's actors are threads beside the loop.  The Overlord is built with
 (ROADMAP.md).  A vlm arch trains as a dense one, as in the JAX
 package, whose trainer passes no image embeddings; a moe arch trains with
 its aux loss in the total, as in the JAX package; an ssm arch (RWKV6)
-trains through the wkv6 forward and backward kernels on the card;
-``hybrid_balance`` balances with the JAX launcher's encoder cost, ViT-2B's
-(``configs.paper_vlm.VIT_2B``).  An arch not ported yet raises where its
-config or its model is asked for, and points at ``ROADMAP.md``.
+trains through the wkv6 forward and backward kernels on the card; a
+hybrid arch (zamba2-7b) trains its shared attention block through the
+attention kernels, balanced by the data plane's hybrid cost (attention on
+``num_layers // attn_every`` layers); ``hybrid_balance`` balances with the
+JAX launcher's encoder cost, ViT-2B's (``configs.paper_vlm.VIT_2B``).  The
+audio family (whisper-medium) is refused: the Overlord's batches carry no
+``enc_embeds``, and the JAX package trains it on a fixed batch only.
 """
 from __future__ import annotations
 
@@ -75,6 +80,12 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = importlib.import_module(
             "repro_torch.configs." + args.arch.replace("-", "_")).reduced()
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: the Overlord's batches carry no enc_embeds, so the "
+            "audio family trains on a fixed batch only "
+            "(train_step.make_train_step), as in the JAX package; see "
+            "ROADMAP.md")
     model = build_model(cfg, torch.Generator(device=device).manual_seed(0))
     print(f"arch={cfg.name} params="
           f"{sum(p.numel() for p in model.parameters()):,}")

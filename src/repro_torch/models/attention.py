@@ -56,13 +56,18 @@ def full_segment_attention(q, k, v, q_seg, kv_seg, *, causal: bool = True):
 def segment_attention(q, k, v, q_seg, kv_seg, *, causal: bool = True):
     """q: (b,sq,h,d); k,v: (b,sk,kh,d) with kh dividing h; segs (b,s) int32.
 
-    Returns (b,sq,h,d) in q's dtype.  The JAX package's kv-chunk knob has
-    no counterpart: the kernel tiles the keys itself.
+    Returns (b,sq,h,d) in q's dtype.  Inputs of two dtypes (a bf16 q on
+    float32 keys, as Whisper's cross-attention meets them) run in the
+    promoted dtype, as the JAX package's einsums promote.  The JAX
+    package's kv-chunk knob has no counterpart: the kernel tiles the keys
+    itself.
     """
-    out = ops.packed_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), q_seg, kv_seg,
+    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    out = ops.packed_attention(q.transpose(1, 2).to(dt),
+                               k.transpose(1, 2).to(dt),
+                               v.transpose(1, 2).to(dt), q_seg, kv_seg,
                                causal=causal)
-    return out.transpose(1, 2)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len):

@@ -2,7 +2,8 @@
 
 Plain functions over nested dicts of tensors declared with ParamDef, with
 the JAX package's numerics: norms and RoPE compute in float32 and return
-the input's dtype; matrix products run in the operands' dtype.
+the input's dtype; matrix products run in the operands' dtype, promoted as
+``jnp`` promotes it where the two differ (``matmul``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,16 @@ import torch.nn.functional as F
 from repro_torch.models.params import (
     EMBED, HEADS, HEAD_DIM, KV_HEADS, MLP, VOCAB, ParamDef,
 )
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in ``torch.promote_types`` of the two, as ``jnp``'s ``@``
+    promotes: a float32 activation times a bf16 weight runs in float32
+    (torch refuses a product of two dtypes)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
 
 
 # --------------------------------------------------------------------- norm
@@ -85,6 +96,22 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     return h @ p["w_down"]
 
 
+def gelu_mlp_def(d_model: int, d_ff: int) -> dict:
+    return {
+        "w_up": ParamDef((d_model, d_ff), (EMBED, MLP), init="scaled"),
+        "b_up": ParamDef((d_ff,), (MLP,), init="zeros"),
+        "w_down": ParamDef((d_ff, d_model), (MLP, EMBED), init="scaled"),
+        "b_down": ParamDef((d_model,), (None,), init="zeros"),
+    }
+
+
+def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation; ``F.gelu``'s
+    is erf, so the form is named."""
+    h = F.gelu(matmul(x, p["w_up"]) + p["b_up"], approximate="tanh")
+    return matmul(h, p["w_down"]) + p["b_down"]
+
+
 # --------------------------------------------------------------- embeddings
 def embedding_def(vocab: int, d_model: int) -> dict:
     return {"table": ParamDef((vocab, d_model), (VOCAB, EMBED), scale=1.0)}
@@ -117,10 +144,10 @@ def attention_proj_def(cfg) -> dict:
     return d
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def head_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matrix product."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def qkv_project(p: dict, cfg, x: torch.Tensor,
@@ -129,9 +156,9 @@ def qkv_project(p: dict, cfg, x: torch.Tensor,
 
     qk-norm runs before RoPE, as in the JAX package.
     """
-    q = _project(x, p["wq"])
-    k = _project(x, p["wk"])
-    v = _project(x, p["wv"])
+    q = head_project(x, p["wq"])
+    k = head_project(x, p["wk"])
+    v = head_project(x, p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -144,4 +171,4 @@ def qkv_project(p: dict, cfg, x: torch.Tensor,
 def attn_out_project(p: dict, attn: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matrix product."""
     h, k, d = p["wo"].shape
-    return attn.flatten(-2) @ p["wo"].reshape(h * k, d)
+    return matmul(attn.flatten(-2), p["wo"].reshape(h * k, d))

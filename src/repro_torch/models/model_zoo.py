@@ -5,10 +5,11 @@ are the JAX tree's key paths joined by ``.`` (``embed.table``,
 ``layers.attn.wq``, ...), with the stacked ``layers`` dim kept, so the
 weight bridge is one to one.  They are built frozen (``requires_grad``
 off), as serving wants; ``train.train_step.init_train_state`` turns
-``requires_grad`` on with ``Model.requires_grad_``.  The dense family
-(``models.transformer``), the ssm family, RWKV6 (``models.rwkv_model``),
-and the moe and vlm families, which the JAX package builds as transformers,
-are ported; other families raise and point at ``ROADMAP.md``.
+``requires_grad`` on with ``Model.requires_grad_``.  All five families of
+the JAX package are ported: dense, and the moe and vlm families, which it
+builds as transformers (``models.transformer``); the Mamba2 hybrid
+(``models.hybrid``); the Whisper encoder-decoder (``models.encdec``); and
+the ssm family, RWKV6 (``models.rwkv_model``).
 """
 from __future__ import annotations
 
@@ -17,13 +18,15 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as pdefs
-from repro_torch.models import rwkv_model, transformer
+from repro_torch.models import encdec, hybrid, rwkv_model, transformer
 
 # family -> the module of its forward / prefill / decode_step / init_cache,
 # and its ParamDef tree
 _FAMILIES = {"dense": (transformer, transformer.lm_defs),
              "moe": (transformer, transformer.lm_defs),
              "vlm": (transformer, transformer.lm_defs),
+             "hybrid": (hybrid, hybrid.hybrid_defs),
+             "audio": (encdec, encdec.encdec_defs),
              "ssm": (rwkv_model, rwkv_model.rwkv_defs)}
 
 
@@ -81,9 +84,8 @@ class Model(ParamTree):
 
 def _family(cfg: ModelConfig) -> tuple:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"yet (ported: {sorted(_FAMILIES)}); see ROADMAP.md")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} "
+                         f"(known: {sorted(_FAMILIES)})")
     return _FAMILIES[cfg.family]
 
 

@@ -24,6 +24,9 @@ HEAD_DIM = "head_dim"
 VOCAB = "vocab"
 EXPERT = "expert"
 LAYERS = "layers"
+SSM_STATE = "ssm_state"
+SSM_INNER = "ssm_inner"
+CONV = "conv"
 RWKV_HEADS = "rwkv_heads"
 LORA = "lora"
 
@@ -97,6 +100,15 @@ def init_params(defs, generator: torch.Generator, dtype=torch.bfloat16,
     ``models.convert.params_from_jax`` instead.
     """
     return tree_map(lambda d: init_param(d, generator, dtype, device), defs)
+
+
+def unstack(tree, dims: int = 1) -> list:
+    """The layers of a tree stacked over its first ``dims`` dims, in
+    order, as views: one ``unbind`` a leaf, so autograd writes each stacked
+    gradient once (indexing would write a full-size one a layer)."""
+    cols = tree_map(lambda t: t.flatten(0, dims - 1).unbind(0), tree)
+    n = len(next(tree_leaves(cols))[1])
+    return [tree_map(lambda c, i=i: c[i], cols) for i in range(n)]
 
 
 def stacked(defs, n: int):

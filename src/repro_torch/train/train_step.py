@@ -64,7 +64,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def make_loss_fn(model: Model):
     """``loss_fn(params, batch) -> (total, metrics)`` on the bf16 copy of
     ``params`` (the master tree); batch: (b, s) tensors ``tokens``,
-    ``segment_ids``, ``positions`` and ``labels`` (-1 where no loss)."""
+    ``segment_ids``, ``positions`` and ``labels`` (-1 where no loss), and
+    whatever else the model reads (an audio model's ``enc_embeds``), passed
+    through whole."""
     def loss_fn(params, batch):
         logits, aux = model.forward(batch, _compute_copy(params))
         labels = batch["labels"]
