@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only dense
     python3 chip_smoke.py --only hybrid
     python3 chip_smoke.py --only audio
+    python3 chip_smoke.py --only remat
 
 Phases (any failure raises, and the exit code is not 0):
   1. device  — the card's name, count and power limit; no card, no run.
@@ -80,7 +81,13 @@ Phases (any failure raises, and the exit code is not 0):
                forward in both dtypes and backward; flash_decode on a
                1500-frame cross cache); reduced whisper-medium on the card
                against the CPU, decode against the prefill's cross cache
-               included; memorising.
+               included; memorising.  The remat checks: the grad guards,
+               and each training family's reduced config (qwen3-8b,
+               qwen3-moe-30b-a3b, pixtral-12b, rwkv6-3b, zamba2-7b with a
+               tail, whisper-medium) under the remat policies "layer" and
+               "dots_saveable" against "none": the first step's loss and
+               every gradient, and the launches (the forward kernels once
+               more in the recompute).
   4. serve   — ``repro_torch.launch.serve`` on qwen3-8b (36 layers, d_model
                4096), on rwkv6-3b (32 layers, d_model 2560) and on the
                paper's VLM backbone paper-llama-12b (45 layers, d_model
@@ -111,15 +118,19 @@ Phases (any failure raises, and the exit code is not 0):
   6. train   — qwen3-8b at full width with 8 of its 36 layers, AdamW on
                float32 master weights: 5 steps through ``train_step`` on
                one packed batch of 4 x 1024 (counts set to 0 before, read
-               after: 8 forward and 8 backward launches a step), losses,
+               after: 16 forward and 8 backward launches a step, since
+               every training phase runs the reference's remat policy
+               "layer", which runs each layer's forward again in the
+               backward), losses,
                step time, tokens/s and peak memory; one step by its parts
                (forward, backward, update) and one under the profiler.
   8. trainer — the same model (freed and drawn again) trained by
                ``repro_torch.train.trainer.Trainer`` from a live Overlord
                (the port's copy of the data plane: four coyo-like sources,
                DP 4 x 1 row x 1024, 96 samples a step, a strict delivery
-               ledger): 8 steps with the counts set to 0 before and read
-               after (8 forward and 8 backward launches a step), finite
+               ledger; the launch-time static analysis, whose report is
+               logged): 8 steps with the counts set to 0 before and read
+               after (16 forward and 8 backward launches a step), finite
                losses, every batch holding tokens, the ledger verified;
                each batch's fill, documents and per-row sum of squared
                document lengths; one step under the profiler with its
@@ -140,20 +151,22 @@ Phases (any failure raises, and the exit code is not 0):
                by the same ``Trainer`` from phase 8's plane for 8 steps:
                counts, losses and aux losses, step and fetch times, peak
                memory, a profiled step, the strict ledger.
- 13. rwkv-trainer — rwkv6-3b at full width with 24 of its 32 layers (a cut
-               for memory) trained by the same ``Trainer`` from phase 8's
-               plane for 8 steps through the wkv6 forward and backward
-               kernels (each once a layer a step): counts, losses, step and
-               fetch times, peak memory, a profiled step, the strict ledger.
+ 13. rwkv-trainer — rwkv6-3b at full width and depth (32 layers) trained
+               by the same ``Trainer`` from phase 8's plane for 8 steps
+               through the wkv6 forward kernel (twice a layer a step: the
+               forward and the recompute) and the backward kernel (once):
+               counts, losses, step and fetch times, peak memory, a
+               profiled step, the strict ledger.
  14. dense-trainer — qwen3-32b at full width with 4 of its 64 layers
                trained the same way: the attention backward at d 80.
- 15. hybrid-trainer — zamba2-7b at full width with 15 of its 81 layers
-               (two blocks of 6 and the 3-layer tail; a cut for memory)
-               trained the same way: the attention kernels at d 112 once a
-               block a step, the Mamba2 scan in eager float32.
+ 15. hybrid-trainer — zamba2-7b at full width with 39 of its 81 layers
+               (six blocks of 6 and the 3-layer tail; a cut for memory)
+               trained the same way: the attention forward kernel at d 112
+               twice a block a step, the backward once, the Mamba2 scan in
+               eager float32, each block recomputed in the backward.
  16. whisper-train — whisper-medium at full width and depth, 5 steps on a
                fixed batch (4 x 1024 decoder tokens, bf16 frame embeddings
-               of 1500 frames): 72 forward and 72 backward attention
+               of 1500 frames): 144 forward and 72 backward attention
                launches a step, the encoder's and the cross-attention's
                non-causal.
  10. loss    — phase 8's model trained for 19 steps from phase 8's plane
@@ -180,10 +193,10 @@ every path
 ``serve:qwen3-moe-30b-a3b:24-of-48-layers`` the MoE serve runs,
 ``serve:yi-9b``, ``serve:granite-20b:28-of-52-layers`` and
 ``serve:qwen3-32b:31-of-64-layers`` the dense ones,
-``trainer:rwkv6-3b:24-of-32-layers`` phase 13,
+``trainer:rwkv6-3b`` phase 13,
 ``trainer:qwen3-32b:4-of-64-layers`` phase 14,
 ``serve:zamba2-7b`` and ``serve:whisper-medium`` the last two families'
-serve runs, ``trainer:zamba2-7b:15-of-81-layers`` phase 15,
+serve runs, ``trainer:zamba2-7b:39-of-81-layers`` phase 15,
 ``train:whisper-medium`` phase 16,
 ``loss:qwen3-8b:data-vocab-4096`` phase 10,
 ``example:train_e2e_torch`` phase 11), each read from its own zeroed run;
@@ -232,6 +245,14 @@ serve run, its decode against the real cross cache and its traces, phase
 (float32, 1500 on 1500, non-causal), ``flash_decode`` on the 1500-frame
 cross cache, the backward at the training cross-attention's (1024 on
 1500), and the two wkv6 kernels as in ``--only hybrid``.
+``--only remat`` is the short loop for the remat policy: phase 1, the
+builds of the four training kernels, the remat checks, then in one call
+zamba2-7b with 15 of its 81 layers under each policy and rwkv6-3b with 24
+of its 32 under "none" and "layer" (peak memory, step time and a profiled
+step's busy share each), rwkv6-3b whole under "layer", and the deepest
+zamba2-7b of 51, 45 and 39 layers that trains under "layer"; and four
+records: the attention forward and backward on that zamba2-7b's first
+batch, the two wkv6 kernels on rwkv6-3b's.
 ``--only bwd`` is the short loop for the backward kernel: phase 1, the
 builds of packed_attention and packed_attention_bwd, the backward checks,
 and the backward's record at the training shape with the live tile pairs
@@ -309,12 +330,15 @@ GRANITE_ARCH, MOE_ARCH, MOE_SERVE_LAYERS = ("granite-moe-3b-a800m",
                                             "qwen3-moe-30b-a3b", 24)
 TMOE_ARCH, TMOE_TRAIN_LAYERS, TMOE_TRAIN_PARAMS = ("paper-tmoe-25b", 3,
                                                    2_991_699_968)
-# RWKV6 training: rwkv6-3b at full width with RWKV_TRAIN_LAYERS of its 32
-# layers trained from phase 8's plane (a cut for memory: 16 layers peaked at
-# 48.37 GiB and 24 at 67.87 GiB, 2.62 GB a layer of float32 weights, grads,
-# two moments, the bf16 copy and the step's activations at 4 x 1024; 32
-# layers would need ~94 GB)
-RWKV_TRAIN_LAYERS, RWKV_TRAIN_PARAMS = 24, 2_408_666_112
+# RWKV6 training: rwkv6-3b at full width and depth, all 32 layers, trained
+# from phase 8's plane under the reference's remat policy, "layer" (keeping
+# every activation, 24 layers peaked at 67.87 GiB and 32 would need ~94 GB;
+# a layer recomputed in the backward leaves the 18 B a parameter of float32
+# weights, grads, two moments and the bf16 copy, 52 GiB, and one layer's
+# activations).  RWKV_PARAMS_BY_LAYERS holds the parameter counts of the
+# depths the remat loop also trains.
+RWKV_TRAIN_LAYERS = 32
+RWKV_PARAMS_BY_LAYERS = {24: 2_408_666_112, 32: 3_099_703_296}
 # the rest of the dense family: yi-9b served at full width and depth;
 # granite-20b (MQA: 48 q heads on one kv head) and qwen3-32b (head_dim 80)
 # served at full width with DENSE_SERVE_LAYERS of their 52 and 64 layers (a
@@ -327,22 +351,27 @@ RWKV_TRAIN_LAYERS, RWKV_TRAIN_PARAMS = 24, 2_408_666_112
 YI_ARCH, GRANITE20_ARCH, QWEN32_ARCH = "yi-9b", "granite-20b", "qwen3-32b"
 DENSE_SERVE_LAYERS = {GRANITE20_ARCH: 28, QWEN32_ARCH: 31}
 QWEN32_TRAIN_LAYERS, QWEN32_TRAIN_PARAMS = 4, 3_364_664_960
-RWKV_TRAIN_PATH = f"trainer:{RWKV_ARCH}:{RWKV_TRAIN_LAYERS}-of-32-layers"
+RWKV_TRAIN_PATH = f"trainer:{RWKV_ARCH}"
 QWEN32_TRAIN_PATH = f"trainer:{QWEN32_ARCH}:{QWEN32_TRAIN_LAYERS}-of-64-layers"
 GRANITE20_SERVE_PATH = (f"serve:{GRANITE20_ARCH}:"
                         f"{DENSE_SERVE_LAYERS[GRANITE20_ARCH]}-of-52-layers")
 # the last two families.  zamba2-7b (81 Mamba2 layers, one shared attention
 # block of 32 heads of 112 after every 6): served at full width and depth;
 # trained from phase 8's plane with ZAMBA_TRAIN_LAYERS of its 81 layers (a
-# cut for memory: two blocks of 6 and the full model's 3-layer tail; 16 B a
-# parameter is 25.7 GB before the activations, which the eager chunked scan
-# keeps per chunk).  whisper-medium (24 encoder and 24 decoder layers, 16
+# cut for memory: whole blocks of 6 and the full model's 3-layer tail, the
+# deepest that fits one card under the remat policy "layer" in
+# ``--only remat``; the 3-layer tail is not checkpointed, as in the
+# reference, and keeps the eager chunked scan's activations; keeping every
+# activation, 15 layers peaked at 64.14 GiB).  ZAMBA_PARAMS_BY_LAYERS holds
+# the parameter counts of the depths the remat loop trains.  whisper-medium (24 encoder and 24 decoder layers, 16
 # heads of 64, 1500 frames): served at full width and depth with float32
 # enc_embeds, as the JAX launcher feeds them; trained on a fixed batch, as
 # the JAX package trains it, with bf16 enc_embeds (model_zoo.input_specs'
 # dtype; the float32 attention kernel has no backward)
 ZAMBA_ARCH, ZAMBA_PARAMS = "zamba2-7b", 6_750_498_384
-ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_PARAMS = 15, 1_604_461_488
+ZAMBA_TRAIN_LAYERS = 39
+ZAMBA_PARAMS_BY_LAYERS = {15: 1_604_461_488, 39: 3_475_747_632,
+                          45: 3_943_569_168, 51: 4_411_390_704}
 ZAMBA_TRAIN_PATH = f"trainer:{ZAMBA_ARCH}:{ZAMBA_TRAIN_LAYERS}-of-81-layers"
 WHISPER_ARCH, WHISPER_PARAMS = "whisper-medium", 811_358_208
 WHISPER_TRAIN_PATH = f"train:{WHISPER_ARCH}"
@@ -1708,7 +1737,7 @@ def _check_moe_full_width_grads():
     with _recorded_routing() as ids:
         loss_k, grads_k = run()
     counts = _launch_counts()
-    if counts["packed_attention"] != 2 or counts["packed_attention_bwd"] != 2:
+    if counts != _train_want(cfg, 1):
         raise AssertionError(f"2-layer step launched {counts}")
     with _plain_attention(), _forced_routing(ids) as moved:
         loss_p, grads_p = run()
@@ -1717,7 +1746,7 @@ def _check_moe_full_width_grads():
     tag = f"{MOE_ARCH} 2 layers full width, kernels vs plain attention"
     log(f"[check] {tag}: the plain run routed as the kernel run; its own "
         f"top-k would have moved {moved} of {batch['tokens'].numel()} "
-        "tokens a layer")
+        "tokens a call (each layer's forward, then its recompute)")
     rel = abs(loss_k - loss_p) / abs(loss_p)
     log(f"[check] {tag}: loss {loss_k:.6f} vs {loss_p:.6f} relative "
         f"{rel:.3e} (limit {LOSS_REL_TOL:g}) "
@@ -2058,14 +2087,18 @@ def _attention_calls(cfg) -> tuple[int, int]:
 
 
 def _train_want(cfg, steps: int) -> dict:
-    """The counts of ``steps`` training steps of ``cfg``: its forward and
-    backward kernel once an attention call (a layer's WKV for the ssm
-    family) a step."""
+    """The counts of ``steps`` training steps of ``cfg``: its backward
+    kernel once an attention call (a layer's WKV for the ssm family) a
+    step, and its forward kernel once more in the backward's recompute
+    unless ``cfg.remat`` is ``"none"`` (every attention call and WKV of a
+    training forward lies inside a checkpoint, and each checkpoint saves a
+    tensor after it, so its recompute reaches it)."""
+    fwd = 1 if cfg.remat == "none" else 2
     if cfg.family == "ssm":
         n = cfg.num_layers * steps
-        return _want(wkv6=n, wkv6_bwd=n)
+        return _want(wkv6=fwd * n, wkv6_bwd=n)
     n = _attention_calls(cfg)[0] * steps
-    return _want(packed_attention=n, packed_attention_bwd=n)
+    return _want(packed_attention=fwd * n, packed_attention_bwd=n)
 
 
 def phase_serve(arch: str, layers: int | None = None) -> tuple[dict, dict]:
@@ -2674,7 +2707,7 @@ def _trainer_plane(root: str, cfg, strategy: str = "backbone_balance",
     (under ``hybrid_balance`` also by ViT-2B's encoder cost over the
     images, as the training launcher passes it), tokens drawn on [1,
     ``vocab``) (default the model's vocabulary), a strict delivery ledger,
-    and no launch-time analysis (not ported)."""
+    and the launch-time static analysis (``Overlord``'s default)."""
     from repro_torch.configs.paper_vlm import VIT_2B
     from repro_torch.core import (ClientPlaceTree, Overlord, OverlordConfig,
                                   StaticSchedule)
@@ -2695,8 +2728,16 @@ def _trainer_plane(root: str, cfg, strategy: str = "backbone_balance",
                         seq_len=TRAIN_SEQ, rows_per_microbatch=1, n_bins=1,
                         samples_per_step=TRAINER_SAMPLES, strategy=strategy,
                         strategy_params=dict(sparams, broadcast=()),
-                        vocab_size=vocab or cfg.vocab_size, ledger=True),
-                    validate=False)
+                        vocab_size=vocab or cfg.vocab_size, ledger=True))
+
+
+def _log_analysis(tag: str, ov):
+    """The report of the static analysis ``Overlord(validate=True)`` ran
+    at launch (warnings only: an error would have raised)."""
+    rep = ov.analysis
+    log(f"[{tag}] the Overlord's launch-time analysis: {len(rep)} findings "
+        f"({len(rep.errors)} errors, {len(rep.warnings)} warnings) "
+        f"{[f.render() for f in rep.findings]}")
 
 
 def _sum_l2(seg: np.ndarray) -> np.ndarray:
@@ -2769,6 +2810,7 @@ def phase_trainer() -> tuple[dict, np.ndarray]:
     kept = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sources_") as root:
         ov = _trainer_plane(root, cfg)
+        _log_analysis("trainer", ov)
         try:
             ov.start()
             trainer = Trainer(model, ov, TrainerConfig(
@@ -2874,10 +2916,8 @@ def _check_reduced_launcher():
         f"{losses}; mean of the first 5 {first}, of the last 5 {last}, "
         f"ln(V - 1) {np.log(cfg.vocab_size - 1)}: {share:.4f} of the gap "
         f"closed (at least {LAUNCHER_GAP_SHARE}); launches {counts}")
-    want = LAUNCHER_STEPS * cfg.num_layers
-    if out["trainer"].device.type != "cuda" or counts[
-            "packed_attention"] != want or counts[
-            "packed_attention_bwd"] != want:
+    if out["trainer"].device.type != "cuda" or counts != _train_want(
+            cfg, LAUNCHER_STEPS):
         raise AssertionError("the reduced launcher did not train through "
                              "the kernels on the card")
     if not np.isfinite(losses).all() or not share >= LAUNCHER_GAP_SHARE:
@@ -2910,8 +2950,8 @@ def _check_checkpoint_round_trip(trainer):
 
 
 def _train_from_plane(model, cfg, strategy: str, steps: int, lr: float,
-                      tag: str, vocab: int | None = None, top: int = 0
-                      ) -> tuple[dict, list, list]:
+                      tag: str, vocab: int | None = None, top: int = 0,
+                      stats: dict | None = None) -> tuple[dict, list, list]:
     """``steps`` steps of ``model`` by the port's ``Trainer`` from a live
     ``_trainer_plane(strategy, vocab)``, with every kernel's count set to 0
     just before and read just after; each batch's rows and aux loss, the
@@ -2919,7 +2959,8 @@ def _train_from_plane(model, cfg, strategy: str, steps: int, lr: float,
     with its fetch in the window (``top``: its kernels that take the most
     device time, logged), and the strict ledger (which raises on a sample
     lost or delivered twice).  Returns the counts, the records and
-    each batch's segment ids."""
+    each batch's segment ids; ``stats``, if given, gets the peak GiB, the
+    mean step and fetch ms and the profiled step's trace."""
     import collections
     import tempfile
     from repro_torch.train.optimizer import AdamWConfig
@@ -2928,6 +2969,7 @@ def _train_from_plane(model, cfg, strategy: str, steps: int, lr: float,
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sources_") as root:
         ov = _trainer_plane(root, cfg, strategy, vocab)
+        _log_analysis(tag, ov)
         try:
             ov.start()
             trainer = Trainer(model, ov, TrainerConfig(
@@ -2986,6 +3028,9 @@ def _train_from_plane(model, cfg, strategy: str, steps: int, lr: float,
     log(f"[trace] {tag} step with its fetch, {strategy}: {traced}")
     log(f"[{tag}] {strategy}: ledger {report}; dropped by reason "
         f"{dict(drops)}")
+    if stats is not None:
+        stats.update(peak_gib=peak / 2**30, step_ms=step_ms, fetch_ms=fetch,
+                     trace=traced)
     want = _train_want(cfg, steps)
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
@@ -3079,13 +3124,17 @@ def phase_trainer_moe() -> tuple[dict, np.ndarray]:
     return counts, segs[0]
 
 
-def phase_trainer_rwkv() -> tuple[dict, np.ndarray]:
-    """rwkv6-3b at full width with RWKV_TRAIN_LAYERS of its 32 layers (a cut
-    for memory) trained by the port's ``Trainer`` from phase 8's live plane
-    under ``backbone_balance`` (whose cost model is linear for the ssm
-    family) for TRAINER_STEPS steps, through the wkv6 forward and backward
-    kernels once a layer a step.  Returns the counts and the first batch's
-    segment ids."""
+def phase_trainer_rwkv(layers: int = RWKV_TRAIN_LAYERS,
+                       remat: str = "layer", stats: dict | None = None
+                       ) -> tuple[dict, np.ndarray]:
+    """rwkv6-3b at full width with ``layers`` of its 32 layers (all of them
+    unless the remat loop asks for fewer) under the remat policy ``remat``
+    (the reference's default) trained by the port's ``Trainer`` from phase
+    8's live plane under ``backbone_balance`` (whose cost model is linear
+    for the ssm family) for TRAINER_STEPS steps, through the wkv6 forward
+    kernel once a layer a step and once more in the recompute, and the
+    backward kernel once a layer a step.  Returns the counts and the first
+    batch's segment ids; ``stats`` gets the run's peak, step and trace."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import build_model
@@ -3093,18 +3142,21 @@ def phase_trainer_rwkv() -> tuple[dict, np.ndarray]:
     torch.cuda.empty_cache()
     log(f"[rwkv-trainer] memory_allocated before the phase: "
         f"{torch.cuda.memory_allocated()} B")
-    cfg = get_config(RWKV_ARCH).replace(num_layers=RWKV_TRAIN_LAYERS)
+    cfg = get_config(RWKV_ARCH).replace(num_layers=layers, remat=remat)
     model = build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())
-    if n_params != RWKV_TRAIN_PARAMS:
-        raise AssertionError(f"{n_params} parameters, not {RWKV_TRAIN_PARAMS}")
+    if n_params != RWKV_PARAMS_BY_LAYERS[layers]:
+        raise AssertionError(f"{n_params} parameters, not "
+                             f"{RWKV_PARAMS_BY_LAYERS[layers]}")
     log(f"[rwkv-trainer] {RWKV_ARCH} layers={cfg.num_layers} of 32 "
-        f"d_model={cfg.d_model} wkv heads={cfg.d_model // cfg.rwkv_head_dim}"
-        f" of {cfg.rwkv_head_dim} chunk={cfg.rwkv_chunk} params={n_params}; "
-        f"Overlord: coyo_like_specs(4), DP {TRAIN_BATCH} x 1 row x "
-        f"{TRAIN_SEQ}, samples_per_step {TRAINER_SAMPLES}, backbone_balance")
+        f"remat={cfg.remat} d_model={cfg.d_model} wkv heads="
+        f"{cfg.d_model // cfg.rwkv_head_dim} of {cfg.rwkv_head_dim} "
+        f"chunk={cfg.rwkv_chunk} params={n_params}; Overlord: "
+        f"coyo_like_specs(4), DP {TRAIN_BATCH} x 1 row x {TRAIN_SEQ}, "
+        f"samples_per_step {TRAINER_SAMPLES}, backbone_balance")
     counts, _, segs = _train_from_plane(model, cfg, "backbone_balance",
-                                        TRAINER_STEPS, 1e-3, "rwkv-trainer")
+                                        TRAINER_STEPS, 1e-3, "rwkv-trainer",
+                                        stats=stats)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3572,14 +3624,19 @@ def main_dense():
 
 
 
-def phase_trainer_hybrid() -> tuple[dict, np.ndarray]:
-    """zamba2-7b at full width with ZAMBA_TRAIN_LAYERS of its 81 layers (two
+def phase_trainer_hybrid(layers: int = ZAMBA_TRAIN_LAYERS,
+                         remat: str = "layer", stats: dict | None = None
+                         ) -> tuple[dict, np.ndarray]:
+    """zamba2-7b at full width with ``layers`` of its 81 layers (whole
     blocks of 6, each closed by the one shared attention block, and the
-    3-layer tail) trained by the port's ``Trainer`` from phase 8's live
-    plane under ``backbone_balance`` (whose cost model charges attention on
-    ``num_layers // attn_every`` layers) for TRAINER_STEPS steps: the
-    attention kernels at d 112 once a block a step.  Returns the counts
-    and the first batch's segment ids."""
+    3-layer tail) under the remat policy ``remat`` (the reference's
+    default; each block one checkpoint, the tail none) trained by the
+    port's ``Trainer`` from phase 8's live plane under ``backbone_balance``
+    (whose cost model charges attention on ``num_layers // attn_every``
+    layers) for TRAINER_STEPS steps: the attention forward kernel at d 112
+    once a block a step and once more in the recompute, the backward once a
+    block a step.  Returns the counts and the first batch's segment ids;
+    ``stats`` gets the run's peak, step and trace."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import build_model
@@ -3587,14 +3644,14 @@ def phase_trainer_hybrid() -> tuple[dict, np.ndarray]:
     torch.cuda.empty_cache()
     log(f"[hybrid-trainer] memory_allocated before the phase: "
         f"{torch.cuda.memory_allocated()} B")
-    cfg = get_config(ZAMBA_ARCH).replace(num_layers=ZAMBA_TRAIN_LAYERS)
+    cfg = get_config(ZAMBA_ARCH).replace(num_layers=layers, remat=remat)
     model = build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())
-    if n_params != ZAMBA_TRAIN_PARAMS:
+    if n_params != ZAMBA_PARAMS_BY_LAYERS[layers]:
         raise AssertionError(f"{n_params} parameters, not "
-                             f"{ZAMBA_TRAIN_PARAMS}")
+                             f"{ZAMBA_PARAMS_BY_LAYERS[layers]}")
     log(f"[hybrid-trainer] {ZAMBA_ARCH} layers={cfg.num_layers} of 81 "
-        f"(blocks of {cfg.attn_every} and a tail of "
+        f"remat={cfg.remat} (blocks of {cfg.attn_every} and a tail of "
         f"{cfg.num_layers % cfg.attn_every}) d_model={cfg.d_model} "
         f"heads={cfg.num_heads}/{cfg.num_kv_heads} of "
         f"{cfg.resolved_head_dim()} ssm heads "
@@ -3604,11 +3661,189 @@ def phase_trainer_hybrid() -> tuple[dict, np.ndarray]:
         f"{TRAINER_SAMPLES}, backbone_balance")
     counts, _, segs = _train_from_plane(model, cfg, "backbone_balance",
                                         TRAINER_STEPS, 1e-3,
-                                        "hybrid-trainer", top=10)
+                                        "hybrid-trainer", top=10,
+                                        stats=stats)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     return counts, segs[0]
+
+
+# ---------------------------------------------------------------- remat
+# the training families' reduced configs (the hybrid with a 1-layer tail,
+# which is not checkpointed); qwen3-moe-30b-a3b's reduced heads are 16
+# wide, granite-moe's 8 are narrower than the backward kernel takes
+REMAT_FAMILIES = {"qwen3_8b": {}, "qwen3_moe_30b_a3b": {},
+                  "pixtral_12b": {}, "rwkv6_3b": {},
+                  "zamba2_7b": {"num_layers": 5}, "whisper_medium": {}}
+# the depths tried for the deepest zamba2-7b that trains under "layer":
+# whole blocks of 6 and the full model's 3-layer tail, deepest first (15
+# layers peaked at 38.78 GiB, 33 at 59.69 and 39 at 66.66: ~6.97 GiB a
+# block; at 45 a 4 GiB allocation found 3.7 GiB free beside 66.9 GiB
+# allocated and 7.8 GiB cached in pieces)
+ZAMBA_DEPTHS = (51, 45, 39)
+
+
+def _check_remat_reduced():
+    """Each training family's reduced config on the card, the same weights
+    and batch (4 x 256 of the data plane's documents; bf16 frames for
+    Whisper) under each remat policy: the first step's loss to a relative
+    LOSS_REL_TOL and every leaf's gradient to a relative L2 of GRAD_REL_L2
+    against ``"none"``, and the launches of each (the forward kernel once
+    more in the recompute).  The recompute runs each kernel again on the
+    same inputs; the MoE block's scatter-add accumulates with atomics, so
+    its recomputed values may differ in the last bits, hence tolerances,
+    not bitwise equality."""
+    import importlib
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.remat import POLICIES
+    from repro_torch.train.train_step import init_train_state, make_loss_fn
+    for module, cut in REMAT_FAMILIES.items():
+        base = importlib.import_module(
+            f"repro_torch.configs.{module}").reduced().replace(**cut)
+        runs = {}
+        for policy in POLICIES:
+            cfg = base.replace(remat=policy)
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            model = build_model(cfg, gen)
+            for name, prm in model.named_parameters():  # RWKV6's LoRA legs
+                if ".mixB_" in name or name.endswith("loraB_w"):
+                    prm.data.normal_(0.0, 0.1, generator=gen)
+            state = init_train_state(model)
+            rng = np.random.default_rng(7)
+            batch = _lm_batch(rng, cfg.vocab_size, _data_plane_segs(
+                rng, TRAIN_BATCH, 256), next_token=True)
+            if cfg.family == "audio":
+                batch["enc_embeds"] = _frames(rng, TRAIN_BATCH, cfg,
+                                              torch.bfloat16)
+            torch.cuda.synchronize()
+            _zero_launch_counts()
+            total, _ = make_loss_fn(model)(state.params, batch)
+            total.backward()
+            torch.cuda.synchronize()
+            counts = _launch_counts()
+            if counts != _train_want(cfg, 1):
+                raise AssertionError(f"{cfg.name} remat={policy}: launched "
+                                     f"{counts}, not {_train_want(cfg, 1)}")
+            runs[policy] = (total.item(), {
+                n: t.grad.float() for n, t in tree_leaves(state.params)},
+                counts)
+        loss_n, grads_n, _ = runs["none"]
+        for policy in POLICIES[1:]:
+            loss, grads, counts = runs[policy]
+            rel = abs(loss - loss_n) / abs(loss_n)
+            worst = max(((torch.linalg.vector_norm(grads[n] - grads_n[n])
+                          / torch.linalg.vector_norm(grads_n[n])).item(), n)
+                        for n in grads_n)
+            ok = rel <= LOSS_REL_TOL and worst[0] <= GRAD_REL_L2
+            log(f"[check] remat {cfg.name} {policy} vs none on the card: "
+                f"loss {loss:.6f} vs {loss_n:.6f} relative {rel:.3e} (limit "
+                f"{LOSS_REL_TOL:g}); worst gradient relative L2 "
+                f"{worst[0]:.3e} ({worst[1]}; limit {GRAD_REL_L2:g}); "
+                f"launches {counts} against {runs['none'][2]} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{cfg.name}: remat={policy} disagrees "
+                                     "with remat=none")
+        del runs
+        torch.cuda.empty_cache()
+
+
+def phase_check_remat():
+    _check_grad_guards()
+    _check_remat_reduced()
+
+
+def _remat_row(what: str, policy: str, stats: dict):
+    log(f"[remat] {what} remat={policy}: peak {stats['peak_gib']:.2f} GiB, "
+        f"step_ms={stats['step_ms']:.3f} fetch_ms={stats['fetch_ms']:.3f} "
+        f"(host clock, steps 2-{TRAINER_STEPS}); profiled step with its "
+        f"fetch: {stats['trace']}")
+
+
+def phase_remat_memory() -> dict:
+    """What the remat policy buys at full width, in one call: zamba2-7b
+    with 15 of its 81 layers under each policy and rwkv6-3b with 24 of its
+    32 under ``"none"`` and ``"layer"`` (the deepest each trained at
+    keeping every activation), each trained from phase 8's plane for
+    TRAINER_STEPS steps; then rwkv6-3b whole under ``"layer"``; then the
+    deepest zamba2-7b that trains under ``"layer"`` of ZAMBA_DEPTHS (a
+    depth whose step runs out of device memory is logged as not fitting,
+    and the next is tried).  Returns each run's counts by path, and the
+    first batch's segment ids of rwkv6-3b whole and of the deepest
+    zamba2-7b, by path."""
+    import gc
+    from repro_torch.models.remat import POLICIES
+    paths, rows, segs = {}, [], {}
+    for policy in POLICIES:
+        stats = {}
+        paths[f"trainer:{ZAMBA_ARCH}:15-of-81-layers:{policy}"], _ = \
+            phase_trainer_hybrid(15, policy, stats)
+        rows.append((f"{ZAMBA_ARCH} 15 of 81 layers", policy, stats))
+    for policy in ("none", "layer"):
+        stats = {}
+        paths[f"trainer:{RWKV_ARCH}:24-of-32-layers:{policy}"], _ = \
+            phase_trainer_rwkv(24, policy, stats)
+        rows.append((f"{RWKV_ARCH} 24 of 32 layers", policy, stats))
+    stats = {}
+    paths[RWKV_TRAIN_PATH], segs[RWKV_TRAIN_PATH] = phase_trainer_rwkv(
+        RWKV_TRAIN_LAYERS, "layer", stats)
+    rows.append((f"{RWKV_ARCH} 32 of 32 layers", "layer", stats))
+    for layers in ZAMBA_DEPTHS:
+        stats = {}
+        try:
+            counts, seg = phase_trainer_hybrid(layers, "layer", stats)
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"[remat] {ZAMBA_ARCH} {layers} of 81 layers under layer "
+                f"does not fit: {str(e).splitlines()[0]}")
+            counts = None
+        if counts is None:      # the failed step's tensors are free now
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        zamba = f"trainer:{ZAMBA_ARCH}:{layers}-of-81-layers"
+        paths[zamba], segs[zamba] = counts, seg
+        rows.append((f"{ZAMBA_ARCH} {layers} of 81 layers", "layer", stats))
+        log(f"[remat] the deepest {ZAMBA_ARCH} of {list(ZAMBA_DEPTHS)} that "
+            f"trains under layer: {layers} of 81 layers (the full run's "
+            f"phase 15 trains {ZAMBA_TRAIN_LAYERS})")
+        break
+    else:
+        raise AssertionError(f"no {ZAMBA_ARCH} depth of {ZAMBA_DEPTHS} "
+                             "trains under layer")
+    for row in rows:
+        _remat_row(*row)
+    return paths, segs
+
+
+def main_remat():
+    """``--only remat``: the builds of the four training kernels, the grad
+    guards, each training family's reduced config under the three remat
+    policies against each other, the memory and step runs of
+    ``phase_remat_memory``, and four records under ``"layer"``: the
+    attention forward and backward on the deepest zamba2-7b's first batch,
+    the two wkv6 kernels on rwkv6-3b's (whole) first batch."""
+    from repro_torch.configs import get_config
+    phase_build(("packed_attention", "packed_attention_bwd", "wkv6",
+                 "wkv6_bwd"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_check_remat()
+    paths, segs = phase_remat_memory()
+    log(f"[done] launches by path: {paths}")
+    zamba, rwkv = get_config(ZAMBA_ARCH), get_config(RWKV_ARCH)
+    z = next(p for p in segs if p != RWKV_TRAIN_PATH)
+    r = RWKV_TRAIN_PATH
+    return [_with_paths(_time_packed_attention(
+                zamba, paths[z]["packed_attention"], segs[z]), paths, own=z),
+            _with_paths(_time_packed_attention_bwd(
+                zamba, paths[z]["packed_attention_bwd"], segs[z]), paths,
+                own=z),
+            _with_paths(_time_wkv6(rwkv, paths[r]["wkv6"], segs[r]), paths,
+                        own=r),
+            _with_paths(_time_wkv6_bwd(rwkv, paths[r]["wkv6_bwd"], segs[r]),
+                        paths, own=r)]
 
 
 def phase_train_whisper() -> dict:
@@ -3616,8 +3851,9 @@ def phase_train_whisper() -> dict:
     weights, TRAIN_STEPS steps through ``train_step`` on one fixed batch:
     4 x 1024 decoder tokens (the data plane's documents, next-token
     labels) and bf16 frame embeddings of 1500 frames, every kernel's count
-    set to 0 just before and read just after (72 forward and 72 backward
-    attention launches a step: 24 encoder, 24 self, 24 cross); step ms by
+    set to 0 just before and read just after (72 attention calls a step,
+    24 encoder, 24 self, 24 cross: each a backward launch, and two forward
+    launches under the remat policy "layer"); step ms by
     CUDA events, tokens/s, peak memory, then one step under the profiler.
     Returns the counts."""
     import gc
@@ -3930,7 +4166,7 @@ def main():
     parser.add_argument("--only", choices=["wkv6", "train", "bwd",
                                            "trainer", "vlm", "moe",
                                            "rwkvtrain", "dense", "hybrid",
-                                           "audio"],
+                                           "audio", "remat"],
                         default=None, help="run only this path's builds, "
                         "checks and timing")
     args = parser.parse_args()
@@ -3944,13 +4180,17 @@ def main():
                    "vlm": main_vlm, "moe": main_moe,
                    "rwkvtrain": main_rwkvtrain,
                    "dense": main_dense, "hybrid": main_hybrid,
-                   "audio": main_audio}[args.only]()
+                   "audio": main_audio, "remat": main_remat}[args.only]()
         log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
         return
+
+    def stamp(what: str):
+        log(f"[time] {what} done {time.perf_counter() - t0:.1f}s after the "
+            "device check")
     phase_build()
     phase_check()
     phase_check_train()
@@ -3959,6 +4199,8 @@ def main():
     phase_check_dense()
     phase_check_hybrid()
     phase_check_audio()
+    phase_check_remat()
+    stamp("the checks")
     paths = {}          # each path's launch counts, from its own zeroed run
     paths[f"serve:{ARCH}"], served = phase_serve(ARCH)
     phase_trace_prefill(ARCH, served)
@@ -3976,16 +4218,21 @@ def main():
     paths.update(phase_serve_dense())
     paths.update(phase_serve_hybrid())
     paths.update(phase_serve_audio())
+    stamp("the serve runs")
     paths[f"train:{ARCH}"], seg = phase_train()
     paths[f"trainer:{ARCH}"], _ = phase_trainer()
+    stamp("phases 6 and 8")
     paths.update(phase_trainer_vlm()[0])
     paths[f"trainer:{TMOE_ARCH}"], _ = phase_trainer_moe()
     paths[RWKV_TRAIN_PATH], rwkv_seg = phase_trainer_rwkv()
+    stamp("phases 9, 12 and 13")
     paths[QWEN32_TRAIN_PATH], _ = phase_trainer_dense()
     paths[ZAMBA_TRAIN_PATH], _ = phase_trainer_hybrid()
     paths[WHISPER_TRAIN_PATH] = phase_train_whisper()
+    stamp("phases 14, 15 and 16")
     paths[f"loss:{ARCH}:data-vocab-{LOSS_VOCAB}"] = phase_loss()
     paths["example:train_e2e_torch"] = phase_example()
+    stamp("phases 10 and 11")
     log(f"[done] launches by path: {paths}")
     kernels = phase_time(paths, seg, rwkv_seg)
     log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")

@@ -75,7 +75,7 @@ def main(argv=None) -> dict:
                           n_bins=1, strategy="backbone_balance",
                           strategy_params=dict(costfn=backbone_cost(cfg),
                                                broadcast=()),
-                          vocab_size=cfg.vocab_size), validate=False)
+                          vocab_size=cfg.vocab_size))
         try:
             ov.start()
             trainer = Trainer(model, ov, TrainerConfig(

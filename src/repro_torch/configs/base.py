@@ -2,9 +2,14 @@
 
 The port's own copy of ``repro.configs.base.ModelConfig``, so it imports
 nothing of ``repro``.  It holds only the fields the ported code reads, with
-the JAX package's names and defaults (its sharding, remat, kv-chunk and
-Pallas knobs have no counterpart here).  The registry holds every arch of
-the JAX package's; asking for any other raises a ``KeyError``.
+the JAX package's names and defaults (its kv-chunk, layer-scan and Pallas
+knobs have no counterpart here).  ``remat`` picks what the training forward
+keeps for the backward, as in the JAX package: ``"layer"`` (the default)
+recomputes each layer, ``"dots_saveable"`` keeps the matmul outputs of each
+layer and recomputes the rest, ``"none"`` keeps every activation.  ``dtype``
+is read only by ``analysis.config_lint``; the compute dtype does not follow
+it.  The registry holds every arch of the JAX package's; asking for any
+other raises a ``KeyError``.
 """
 from __future__ import annotations
 
@@ -46,6 +51,9 @@ class ModelConfig:
     encoder_frames: int = 1500   # whisper: 30s audio -> 1500 frames (stub)
     # --- vlm ---
     image_token_frac: float = 0.0  # fraction of sequence that is image embeds
+    # --- numerics / performance knobs ---
+    dtype: str = "bfloat16"
+    remat: str = "layer"         # none | layer | dots_saveable
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads

@@ -97,10 +97,11 @@ class Overlord:
         # (docs/ANALYSIS.md; disable with validate=False)
         self.analysis = None
         if validate:
-            raise NotImplementedError(
-                "Overlord(validate=True) runs the static analysis, which is "
-                "not ported to repro_torch yet (see ROADMAP.md); pass "
-                "validate=False")
+            from repro_torch.analysis import AnalysisError, validate_launch
+            self.analysis = validate_launch(
+                cfg, tree, n_sources=len(self.paths))
+            if not self.analysis.ok:
+                raise AnalysisError(self.analysis)
         self.telemetry = Telemetry(enabled=cfg.telemetry,
                                    max_spans=cfg.telemetry_max_spans,
                                    seed=cfg.seed)

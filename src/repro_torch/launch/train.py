@@ -15,9 +15,12 @@
 The port of ``repro.launch.train``: the same CLI and defaults plus
 ``--device`` (default ``cuda``; without a card that raises unless
 ``--device cpu`` is given).  Everything runs in one process: the data
-plane's actors are threads beside the loop.  The Overlord is built with
-``validate=False``: its launch-time static analysis is not ported yet
-(ROADMAP.md).  A vlm arch trains as a dense one, as in the JAX
+plane's actors are threads beside the loop.  The Overlord runs its
+launch-time static analysis (``repro_torch.analysis``) before any thread
+starts, as the JAX launcher's does, so a configuration it refuses raises
+``AnalysisError``: ``--strategy vanilla`` is one, in both packages, since
+the launcher passes ``broadcast``, which ``vanilla`` does not accept
+(CFG304).  A vlm arch trains as a dense one, as in the JAX
 package, whose trainer passes no image embeddings; a moe arch trains with
 its aux loss in the total, as in the JAX package; an ssm arch (RWKV6)
 trains through the wkv6 forward and backward kernels on the card; a
@@ -52,10 +55,7 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 def main(argv=None) -> dict:
     """Train once.  Returns the per-step records (``history``) and the
     ``trainer``, whose Overlord is shut down by then."""
-    ap = argparse.ArgumentParser(
-        description=__doc__.split("\n")[0],
-        epilog="The Overlord runs with validate=False: the static analysis "
-        "it would run at launch is not ported (see ROADMAP.md).")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen3-8b")
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-sized config")
@@ -114,7 +114,7 @@ def main(argv=None) -> dict:
                           seq_len=args.seq_len, rows_per_microbatch=args.rows,
                           n_bins=args.n_bins, strategy=args.strategy,
                           strategy_params=sparams, vocab_size=cfg.vocab_size,
-                      ), validate=False)
+                      ))
         try:
             ov.start()
             trainer = Trainer(model, ov, TrainerConfig(

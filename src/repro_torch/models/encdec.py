@@ -24,6 +24,7 @@ from repro_torch.models.attention import decode_attention, segment_attention
 from repro_torch.models.params import (
     EMBED, VOCAB, ParamDef, stacked, unstack,
 )
+from repro_torch.models.remat import remat, whole_layer
 
 
 def _enc_layer_def(cfg) -> dict:
@@ -61,18 +62,23 @@ def _ones(b: int, s: int, device) -> torch.Tensor:
 def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor
            ) -> torch.Tensor:
     """enc_embeds: (b, F, d) stub frame embeddings -> encoder states, in
-    the promoted dtype of the embeddings and the weights."""
+    the promoted dtype of the embeddings and the weights.  Under grad each
+    layer is checkpointed unless ``cfg.remat`` is ``"none"``, as in JAX."""
     b, F_, _ = enc_embeds.shape
     h = enc_embeds
     pos = torch.arange(F_, dtype=torch.int32, device=h.device).expand(b, F_)
     ones = _ones(b, F_, h.device)
-    for lp in unstack(params["enc_layers"]):
+
+    def layer_fn(h, lp):
         x = L.layernorm(lp["attn_norm"], h, cfg.norm_eps)
         q, k, v = L.qkv_project(lp["attn"], cfg, x, pos)
         attn = segment_attention(q, k, v, ones, ones, causal=False)
         h = h + L.attn_out_project(lp["attn"], attn)
-        x = L.layernorm(lp["mlp_norm"], h, cfg.norm_eps)
-        h = h + L.gelu_mlp(lp["mlp"], x)
+        return _mlp(lp, cfg, h)
+
+    body = remat(layer_fn, whole_layer(cfg.remat))
+    for lp in unstack(params["enc_layers"]):
+        h = body(h, lp)
     return L.layernorm(params["enc_norm"], h, cfg.norm_eps)
 
 
@@ -107,15 +113,22 @@ def _head(params, cfg, h):
 
 def forward(params, cfg: ModelConfig, batch):
     """Train forward: batch tokens/segment_ids/positions (b, s) int32 and
-    ``enc_embeds`` (b, F, d).  Returns (logits (b, s, vocab), 0)."""
+    ``enc_embeds`` (b, F, d).  Returns (logits (b, s, vocab), 0).  Under
+    grad each decoder layer is checkpointed unless ``cfg.remat`` is
+    ``"none"``, as in JAX."""
     enc_out = encode(params, cfg, batch["enc_embeds"])
     enc_valid = _ones(*enc_out.shape[:2], enc_out.device)
     seg, pos = batch["segment_ids"], batch["positions"]
     h = L.embed(params["embed"], batch["tokens"])
-    for lp in unstack(params["dec_layers"]):
+
+    def layer_fn(h, enc_out, lp):
         h = _self_attn(lp, cfg, h, seg, pos)[0]
         h = _cross_block(lp, cfg, h, enc_out, enc_valid)
-        h = _mlp(lp, cfg, h)
+        return _mlp(lp, cfg, h)
+
+    body = remat(layer_fn, whole_layer(cfg.remat))
+    for lp in unstack(params["dec_layers"]):
+        h = body(h, enc_out, lp)
     return _head(params, cfg, h), torch.zeros((), dtype=torch.float32,
                                               device=h.device)
 

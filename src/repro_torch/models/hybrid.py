@@ -21,6 +21,7 @@ from repro_torch.models.attention import decode_attention, segment_attention
 from repro_torch.models.params import (
     EMBED, VOCAB, ParamDef, stacked, unstack,
 )
+from repro_torch.models.remat import remat, whole_layer
 
 
 def _split_counts(cfg: ModelConfig) -> tuple[int, int]:
@@ -82,14 +83,22 @@ def _head(params, cfg, h):
 
 def forward(params, cfg: ModelConfig, batch):
     """batch: tokens/segment_ids/positions (b, s) int32 tensors.  Returns
-    (logits (b, s, vocab), 0)."""
+    (logits (b, s, vocab), 0).  Under grad each block (its ``attn_every``
+    Mamba2 layers and the shared block) is one checkpoint unless
+    ``cfg.remat`` is ``"none"``; the tail is not checkpointed, as in JAX."""
     seg, pos = batch["segment_ids"], batch["positions"]
     h = L.embed(params["embed"], batch["tokens"])
     blocks, tail = _mamba_layers(params)
-    for i in range(len(blocks) // cfg.attn_every):
-        for lp in blocks[i * cfg.attn_every:(i + 1) * cfg.attn_every]:
+
+    def block_fn(h, sp, *layers):
+        for lp in layers:
             h = _mamba_layer(lp, cfg, h, seg)
-        h = _shared_attn_apply(params["shared_attn"], cfg, h, seg, pos)[0]
+        return _shared_attn_apply(sp, cfg, h, seg, pos)[0]
+
+    body = remat(block_fn, whole_layer(cfg.remat))
+    for i in range(len(blocks) // cfg.attn_every):
+        h = body(h, params["shared_attn"],
+                 *blocks[i * cfg.attn_every:(i + 1) * cfg.attn_every])
     for lp in tail:
         h = _mamba_layer(lp, cfg, h, seg)
     return _head(params, cfg, h), torch.zeros((), dtype=torch.float32,

@@ -98,8 +98,11 @@ def moe_block(p: dict, cfg, x: torch.Tensor) -> tuple[torch.Tensor,
     h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"])) \
         * torch.einsum("becd,edf->becf", buf, p["w_up"])
     out_e = torch.einsum("becf,efd->becd", h, p["w_down"])
-    out_e[:, :, C] = 0                                      # drop overflow
-    gathered = out_e[rows, idf, dest].reshape(b, s, k, d)
+    # drop overflow: the overflow slot reads as 0 (JAX sets out_e[:, :, C]
+    # to 0); masked after the gather, not written in place, since remat's
+    # "dots_saveable" keeps the einsum's output for the recompute
+    gathered = torch.where((dest < C)[..., None], out_e[rows, idf, dest],
+                           0).reshape(b, s, k, d)
     out = torch.sum(weights[..., None] * gathered.float(), dim=2)
 
     me = probs.mean(dim=(0, 1))                             # (E,)

@@ -15,6 +15,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv
 from repro_torch.models.params import EMBED, VOCAB, ParamDef, stacked, tree_map
+from repro_torch.models.remat import remat, whole_layer
 
 
 def rwkv_defs(cfg: ModelConfig) -> dict:
@@ -46,11 +47,19 @@ def forward(params, cfg: ModelConfig, batch, return_state: bool = False):
     """batch: tokens/segment_ids (b, s) int32 tensors.  Returns (logits
     (b, s, vocab), 0) or, with ``return_state``, (logits, the states stacked
     over layers: tm_shift and cm_shift (L, b, 1, d) in the activations'
-    dtype, wkv (L, b, h, dk, dk) float32)."""
+    dtype, wkv (L, b, h, dk, dk) float32).  Without ``return_state``, each
+    layer is checkpointed under grad unless ``cfg.remat`` is ``"none"``, as
+    in JAX."""
     seg = batch["segment_ids"]
     h = L.embed(params["embed"], batch["tokens"])
     h = L.layernorm(params["ln0"], h, cfg.norm_eps)
     states = []
+
+    def layer_fn(h, lp):
+        h = h + rwkv.rwkv6_timemix_train(lp["tm"], cfg, h, seg)
+        return h + rwkv.rwkv6_channelmix_train(lp["cm"], cfg, h)
+
+    body = remat(layer_fn, whole_layer(cfg.remat))
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         if return_state:
@@ -63,8 +72,7 @@ def forward(params, cfg: ModelConfig, batch, return_state: bool = False):
             h = h + rwkv.rwkv6_channelmix_train(lp["cm"], cfg, h)
             states.append(st)
         else:
-            h = h + rwkv.rwkv6_timemix_train(lp["tm"], cfg, h, seg)
-            h = h + rwkv.rwkv6_channelmix_train(lp["cm"], cfg, h)
+            h = body(h, lp)
     logits = _head(params, cfg, h)
     if return_state:
         return logits, {n: torch.stack([st[n] for st in states])

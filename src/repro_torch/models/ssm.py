@@ -23,8 +23,12 @@ once; only the (b, H, P, N) state is carried, chunk by chunk.  Every
 einsum has two operands, so none forms an outer product of three (torch
 contracts a longer einsum left to right: ``bcmhp,bcmn,bcmh`` would make
 a (b, c, m, h, p, n) tensor, 7.5 GB at zamba2-7b's training shape).  JAX
-rematerialises each chunk in the backward pass (``jax.checkpoint``); the
-port keeps autograd's saved tensors instead.
+also rematerialises each chunk of the scan in the backward pass
+(``jax.checkpoint`` inside it, whatever ``cfg.remat`` says); the port
+instead covers the scan's memory at the hybrid's block granularity: under
+``cfg.remat`` other than ``"none"``, ``models.hybrid.forward`` keeps only
+each block's input and recomputes its layers, the scan included, in the
+backward.
 """
 from __future__ import annotations
 

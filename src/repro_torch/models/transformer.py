@@ -11,6 +11,8 @@ the batch's ``image_embeds`` over the token embeddings at
 ``image_positions`` when the batch holds them (``_embed_inputs``).  A moe
 config's layers hold ``models.moe``'s block in place of the SwiGLU;
 ``forward`` sums its aux losses, ``prefill`` and ``decode_step`` drop them.
+Under grad, ``forward`` checkpoints each layer as ``cfg.remat`` says
+(``models.remat``), carrying ``h`` and the aux loss, as JAX's scan does.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import decode_attention, segment_attention
 from repro_torch.models.params import EMBED, VOCAB, ParamDef, stacked, tree_map
+from repro_torch.models.remat import remat
 
 
 # ------------------------------------------------------------------- defs
@@ -99,13 +102,15 @@ def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
     seg = batch["segment_ids"]
     pos = batch["positions"]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+
+    def layer_fn(h, aux, lp):
         h = h + _attn_block(lp, cfg, h, seg, pos)[0]
         ffn, a = _ffn_block(lp, cfg, h)
-        h = h + ffn
-        if a is not None:
-            aux = aux + a
+        return h + ffn, aux if a is None else aux + a
+
+    body = remat(layer_fn, cfg.remat)
+    for i in range(cfg.num_layers):
+        h, aux = body(h, aux, _layer(params, i))
     return _unembed(params, cfg, h), aux
 
 

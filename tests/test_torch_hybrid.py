@@ -362,7 +362,10 @@ def test_hybrid_grads_and_train_steps_match_jax(float32_compute):
 def test_shared_block_gradient_is_the_sum_over_its_applications():
     """The one shared block applied after each of the blocks: its gradient
     equals the sum of the gradients that separate copies, one an
-    application, would get (float32, no compute cast)."""
+    application, would get (float32, no compute cast).  Under the remat
+    policy (each block one checkpoint) the block runs again in the
+    backward, last block first, so the copies are handed out in that order
+    a second time."""
     from repro_torch.models import hybrid
     cfg, jcfg = _cfgs(TAIL)
     jp = jax_build_model(jcfg).init(jax.random.key(1), jnp.float32)
@@ -380,7 +383,7 @@ def test_shared_block_gradient_is_the_sum_over_its_applications():
                for k, t in params["shared_attn"].items()}
               for _ in range(n_blocks)]
     apply = hybrid._shared_attn_apply
-    calls = iter(copies)
+    calls = iter(copies + copies[::-1])
     try:
         hybrid._shared_attn_apply = lambda sp, *a: apply(next(calls), *a)
         model(batch)[0].square().mean().backward()

@@ -316,7 +316,9 @@ def forced_routing(monkeypatch):
     """Route the port as JAX routes, layer by layer: JAX's expert ids are
     recorded from inside its jitted step (``jax.debug.callback``; under
     the layer remat each layer reports twice, forward first) and handed to
-    the port's ``moe.top_k`` in order.  bf16 compute rounds the router's
+    the port's ``moe.top_k`` in the order the port routes: its forward,
+    layer by layer, then its backward's recompute under the same remat
+    policy, last layer first.  bf16 compute rounds the router's
     inputs differently in the two frameworks, which flips near-tied
     experts of a few tokens a layer; ``moved`` counts, for each layer, the
     tokens whose experts the port's own top-k would have changed."""
@@ -336,9 +338,10 @@ def forced_routing(monkeypatch):
         return torch.gather(probs, -1, ids), ids
 
     def take(layers: int):
-        """Queue the forward's ids of JAX's last step for the port's."""
+        """Queue the forward's ids of JAX's last step for the port's
+        forward, and again, last layer first, for its recompute."""
         assert len(jax_ids) == 2 * layers
-        queue[:] = jax_ids[:layers]
+        queue[:] = jax_ids[:layers] + jax_ids[:layers][::-1]
         jax_ids.clear()
 
     monkeypatch.setattr(jmoe, "moe_block", recording)
@@ -401,7 +404,9 @@ def test_reduced_train_steps_match_jax(arch, forced_routing):
         assert np.abs(exp).max() > 0, path
         rel = np.linalg.norm(got - exp) / np.linalg.norm(exp)
         assert rel < UPDATE_REL_L2, (path, rel)
-    assert len(moved) == 4 * L and max(moved) <= 0.05 * tokens, moved
+    # four forwards (the gradients' and three steps'), each routing every
+    # layer twice: the forward and the recompute
+    assert len(moved) == 8 * L and max(moved) <= 0.05 * tokens, moved
 
 
 def test_tied_embeddings_loss_and_gradients_match_jax_in_float32():

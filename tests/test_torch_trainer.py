@@ -41,10 +41,11 @@ STEPS = 3
 
 
 def _overlord(pkg: str, root: str, cost_cfg, vocab: int, seq_len: int = 256,
-              validate: bool = False, strategy: str = "backbone_balance"):
+              validate: bool = True, strategy: str = "backbone_balance"):
     """The trainer phase's data plane from package ``pkg``: four coyo-like
     sources, equal weights, DP 4, one row and one bin per bucket, 96
-    samples a step, a strict ledger, no launch-time analysis.  Under
+    samples a step, a strict ledger, the launch-time analysis (the
+    Overlord's default).  Under
     ``hybrid_balance`` the strategy takes the launchers' costs: the
     backbone's, and ViT-2B's for the images."""
     import importlib
@@ -356,11 +357,31 @@ def test_gap_closed_is_the_share_of_the_gap_to_ln_v_minus_1():
     assert gap_closed(losses, 256, n=10)[2] == 0.0
 
 
-def test_overlord_validate_raises_and_names_the_roadmap():
+def test_overlord_validate_runs_the_analysis_and_refuses_before_threads():
+    """``Overlord(validate=True)``, the default, runs the port's static
+    analysis at launch: the trainer phase's plane passes it and keeps the
+    report, and a configuration it refuses (``vanilla`` given the
+    ``broadcast`` it does not accept, as both training launchers pass it:
+    CFG304) raises ``repro_torch.analysis.AnalysisError`` before any
+    thread starts, with the rule ids ``repro``'s Overlord reports."""
+    from repro_torch.analysis import AnalysisError
     from repro_torch.configs import get_config
-    before = set(threading.enumerate())
+    cfg = get_config("qwen3-8b")
     with tempfile.TemporaryDirectory() as root:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            _overlord("repro_torch", root, get_config("qwen3-8b"), 256,
-                      validate=True)
+        ov = _overlord("repro_torch", root, cfg, 256)
+        try:
+            assert ov.analysis.ok
+            assert not ov.analysis.errors
+        finally:
+            ov.shutdown()
+    before = set(threading.enumerate())
+    rules = {}
+    for pkg, error in (("repro", None), ("repro_torch", AnalysisError)):
+        with tempfile.TemporaryDirectory() as root:
+            with pytest.raises(Exception) as info:
+                _overlord(pkg, root, cfg, 256, strategy="vanilla")
+        assert type(info.value).__name__ == "AnalysisError"
+        assert error is None or isinstance(info.value, error)
+        rules[pkg] = sorted(f.rule for f in info.value.report.errors)
+    assert rules["repro_torch"] == rules["repro"] and rules["repro"]
     assert not set(threading.enumerate()) - before
