@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only hybrid
     python3 chip_smoke.py --only audio
     python3 chip_smoke.py --only remat
+    python3 chip_smoke.py --only dryrun
 
 Phases (any failure raises, and the exit code is not 0):
   1. device  — the card's name, count and power limit; no card, no run.
@@ -88,6 +89,19 @@ Phases (any failure raises, and the exit code is not 0):
                "dots_saveable" against "none": the first step's loss and
                every gradient, and the launches (the forward kernels once
                more in the recompute).
+  3b. dryrun — the dry-run's byte count against the card's allocator: on a
+               world-of-one local mesh (``launch.mesh.make_local_mesh``,
+               nccl), qwen3-8b at full width with 8 of its 36 layers (the
+               trainer's cut): the bytes ``launch.dryrun`` predicts on meta
+               tensors for its float32 params, its whole train state and an
+               ``init_cache(8, 4096)`` against the growth of
+               ``torch.cuda.memory_allocated()`` across ``build_model``,
+               ``init_train_state`` and ``init_cache`` (within 512 B a
+               leaf, the allocator's rounding); every parameter distributed
+               as a DTensor with the sharding rules' placements, its local
+               shard bitwise equal to it; then ``python -m
+               repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
+               --mesh both`` as a subprocess; the group destroyed.
   4. serve   — ``repro_torch.launch.serve`` on qwen3-8b (36 layers, d_model
                4096), on rwkv6-3b (32 layers, d_model 2560) and on the
                paper's VLM backbone paper-llama-12b (45 layers, d_model
@@ -253,6 +267,8 @@ step's busy share each), rwkv6-3b whole under "layer", and the deepest
 zamba2-7b of 51, 45 and 39 layers that trains under "layer"; and four
 records: the attention forward and backward on that zamba2-7b's first
 batch, the two wkv6 kernels on rwkv6-3b's.
+``--only dryrun`` is the short loop for the dry-run: phase 1 and phase 3b;
+it builds and launches no kernel, so its ``kernels`` line is empty.
 ``--only bwd`` is the short loop for the backward kernel: phase 1, the
 builds of packed_attention and packed_attention_bwd, the backward checks,
 and the backward's record at the training shape with the live tile pairs
@@ -4161,12 +4177,141 @@ def main_audio():
             *_wkv6_records(paths)]
 
 
+# --------------------------------------------------------- 3b. dryrun
+DRYRUN_LEAF_SLACK = 512     # the caching allocator rounds blocks to 512 B
+
+
+def _allocated() -> int:
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _check_predicted(what: str, predicted: int, grown: int, leaves: int,
+                     smi: str):
+    slack = DRYRUN_LEAF_SLACK * leaves
+    log(f"[dryrun] {what}: predicted={predicted} B grown={grown} B "
+        f"(diff {grown - predicted} B, allowed {slack} B for {leaves} "
+        f"leaves) on {smi}")
+    if abs(grown - predicted) > slack:
+        raise AssertionError(f"dry-run {what}: predicted {predicted} B, "
+                             f"the allocator grew {grown} B")
+
+
+def phase_dryrun():
+    """Phase 3b: the dry-run's predicted bytes against the allocator, the
+    rules' DTensor placements on a local mesh, and the dry-run's CLI."""
+    import gc
+    import tempfile
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.launch import dryrun, mesh as lmesh
+    from repro_torch.models import params as pdefs
+    from repro_torch.models.model_zoo import (
+        build_meta_model, build_model, model_defs,
+    )
+    from repro_torch.sharding.logical import (
+        ShardingRules, mesh_axis_sizes, param_shardings,
+    )
+    from repro_torch.train.train_step import init_train_state
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    cfg = get_config(ARCH).replace(num_layers=TRAIN_LAYERS)
+    train, prefill = SHAPES["train_4k"], ShapeConfig("prefill", "prefill",
+                                                      1, 1)
+    decode = ShapeConfig("decode_4k_b8", "decode", 4096, 8)
+    leaves = len(list(pdefs.tree_leaves(model_defs(cfg))))
+    cache_leaves = len(list(pdefs.tree_leaves(
+        build_meta_model(cfg).cache_axes())))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = lmesh.make_local_mesh("cuda")
+    try:
+        log(f"[dryrun] local mesh {mesh_axis_sizes(mesh)} backend "
+            f"{torch.distributed.get_backend()}")
+
+        def predict(shape):
+            return dryrun.persistent_bytes(
+                build_meta_model(cfg), shape, mesh,
+                ShardingRules(mesh, dryrun.rules_for(shape)))
+        p_params, p_state, p_decode = map(predict, (prefill, train, decode))
+        base = _allocated()
+        model = build_model(cfg, torch.Generator("cuda").manual_seed(
+            TRAIN_SEED), torch.float32)
+        grown_params = _allocated() - base
+        state = init_train_state(model)
+        grown_state = _allocated() - base
+        _check_predicted(f"{ARCH} {TRAIN_LAYERS}-layer float32 params",
+                         p_params, grown_params, leaves, smi)
+        _check_predicted(f"{ARCH} {TRAIN_LAYERS}-layer train state",
+                         p_state, grown_state, 3 * leaves + 1, smi)
+        shardings, rules = param_shardings(model_defs(cfg), mesh)
+        specs = dict(pdefs.tree_leaves(shardings))
+        for path, p in pdefs.tree_leaves(state.params):
+            d = distribute_tensor(p.detach(), mesh, specs[path].placements())
+            local = d.to_local()
+            if not (local.shape == p.shape and torch.equal(
+                    local.view(torch.int32), p.detach().view(torch.int32))):
+                raise AssertionError(f"DTensor shard of {path} differs")
+            del d, local
+        log(f"[dryrun] {leaves} parameters distributed as DTensors with the "
+            f"rules' placements, each local shard bitwise equal "
+            f"(dropped {rules.dropped})")
+        with torch.no_grad():
+            base = _allocated()
+            cache = model.init_cache(decode.global_batch, decode.seq_len)
+            grown_cache = _allocated() - base
+        _check_predicted(f"{ARCH} {TRAIN_LAYERS}-layer init_cache("
+                         f"{decode.global_batch}, {decode.seq_len})",
+                         p_decode - p_params, grown_cache, cache_leaves, smi)
+        del cache, state, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        lmesh.close_local_mesh()
+    if torch.distributed.is_initialized():
+        raise AssertionError("the local mesh's process group outlived it")
+    with tempfile.TemporaryDirectory() as out:
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             ARCH, "--shape", "train_4k", "--mesh", "both", "--out", out],
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "src")))
+        wall = time.perf_counter() - t1
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun CLI failed: {proc.stderr[-3000:]}")
+        for m in ("single", "multi"):
+            rec = json.loads(open(os.path.join(
+                out, f"{ARCH}__train_4k__{m}.json")).read())
+            if rec["status"] != "ok":
+                raise AssertionError(f"dryrun {m}: {rec}")
+            log(f"[dryrun] CLI {ARCH} train_4k {m}: persistent_bytes_per_"
+                f"device={rec['persistent_bytes_per_device']} "
+                f"({rec['persistent_bytes_per_device'] / 2**30:.2f} GiB) "
+                f"model_flops={rec['model_flops']:.6e} "
+                f"op_flops={rec['op_flops']} op_bytes={rec['op_bytes']} "
+                f"op_count={rec['op_count']} trace_s={rec['trace_s']} "
+                f"dropped={len(rec['dropped_shardings'])}")
+    phase_s = time.perf_counter() - t0
+    log(f"[dryrun] CLI subprocess {wall:.1f}s; phase {phase_s:.1f}s on {smi}")
+
+
+def main_dryrun():
+    """``--only dryrun``: phase 3b alone; no kernel is built or launched."""
+    phase_dryrun()
+    return []
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["wkv6", "train", "bwd",
                                            "trainer", "vlm", "moe",
                                            "rwkvtrain", "dense", "hybrid",
-                                           "audio", "remat"],
+                                           "audio", "remat", "dryrun"],
                         default=None, help="run only this path's builds, "
                         "checks and timing")
     args = parser.parse_args()
@@ -4180,7 +4325,8 @@ def main():
                    "vlm": main_vlm, "moe": main_moe,
                    "rwkvtrain": main_rwkvtrain,
                    "dense": main_dense, "hybrid": main_hybrid,
-                   "audio": main_audio, "remat": main_remat}[args.only]()
+                   "audio": main_audio, "remat": main_remat,
+                   "dryrun": main_dryrun}[args.only]()
         log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {
@@ -4201,6 +4347,8 @@ def main():
     phase_check_audio()
     phase_check_remat()
     stamp("the checks")
+    phase_dryrun()
+    stamp("phase 3b")
     paths = {}          # each path's launch counts, from its own zeroed run
     paths[f"serve:{ARCH}"], served = phase_serve(ARCH)
     phase_trace_prefill(ARCH, served)

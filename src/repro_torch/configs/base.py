@@ -9,7 +9,8 @@ recomputes each layer, ``"dots_saveable"`` keeps the matmul outputs of each
 layer and recomputes the rest, ``"none"`` keeps every activation.  ``dtype``
 is read only by ``analysis.config_lint``; the compute dtype does not follow
 it.  The registry holds every arch of the JAX package's; asking for any
-other raises a ``KeyError``.
+other raises a ``KeyError``.  ``SHAPES``, ``shape_applicable`` and
+``assigned_archs`` are the reference's dry-run cells, with its values.
 """
 from __future__ import annotations
 
@@ -70,6 +71,32 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+# long_500k needs sub-quadratic attention: only SSM / hybrid families run it
+# (see DESIGN.md §4); everything else records an explicit skip.
+_SUBQUADRATIC_FAMILIES = ("hybrid", "ssm")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    if shape.name == "long_500k" and cfg.family not in _SUBQUADRATIC_FAMILIES:
+        return False, "long_500k skipped: quadratic full attention (DESIGN.md §4)"
+    return True, ""
+
+
 _REGISTRY: dict[str, ModelConfig] = {}
 
 
@@ -96,6 +123,18 @@ def list_configs() -> list[str]:
 _PORTED = ["qwen3_8b", "rwkv6_3b", "pixtral_12b", "paper_vlm",
            "qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "yi_9b",
            "granite_20b", "qwen3_32b", "zamba2_7b", "whisper_medium"]
+
+_ASSIGNED = [
+    "qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "granite_20b", "qwen3_8b",
+    "yi_9b", "qwen3_32b", "zamba2_7b", "pixtral_12b", "whisper_medium",
+    "rwkv6_3b",
+]
+
+
+def assigned_archs() -> list[str]:
+    _ensure_loaded()
+    return [a.replace("_", "-") for a in _ASSIGNED]
+
 
 _LOADED = False
 

@@ -2,7 +2,11 @@
 
 The port of ``repro.kernels.ops``.  The device of the inputs decides: CUDA
 tensors go to the hand-written kernels (which launch or raise; nothing falls
-back), CPU tensors go to ``kernels.ref`` because the caller put them there.
+back), CPU tensors go to ``kernels.ref`` because the caller put them there,
+and so do meta tensors (the dry-run's, ``launch.dryrun``): they hold no
+data, and the plain versions give their shapes and their FLOPs.  ``wkv6``
+on meta runs the plain version as one custom op (``kernels.meta``), since
+its chunk loop is too slow to trace at full size.
 Under autograd, bfloat16 ``packed_attention`` on the card runs the forward
 kernel (which then also writes each row's log-sum-exp) and the backward
 kernel, and ``wkv6`` the forward kernel (which then also keeps the state
@@ -14,11 +18,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_decode as _flash_decode
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import packed_attention as _packed_attention
 from repro_torch.kernels import packed_attention_bwd as _packed_attention_bwd
 from repro_torch.kernels import ref
 from repro_torch.kernels import wkv6 as _wkv6
 from repro_torch.kernels import wkv6_bwd as _wkv6_bwd
+
+
+_PLAIN = ("cpu", "meta")     # devices whose tensors take the plain versions
 
 
 class _PackedAttention(torch.autograd.Function):
@@ -68,7 +76,7 @@ class _WKV6(torch.autograd.Function):
 def packed_attention(q, k, v, q_seg, kv_seg, *, causal: bool = True
                      ) -> torch.Tensor:
     """Layout: q (b, h, sq, d); k/v (b, kh, sk, d); segs (b, s)."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN:
         return ref.packed_attention_ref(q, k, v, q_seg, kv_seg, causal=causal)
     if q.dtype == torch.bfloat16 and torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
@@ -80,7 +88,7 @@ def packed_attention(q, k, v, q_seg, kv_seg, *, causal: bool = True
 
 def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     """Layout: q (b, h, d); caches (b, kh, S, d); cache_len (b,)."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN:
         return ref.flash_decode_ref(q, k_cache, v_cache, cache_len)
     return _flash_decode.flash_decode(q, k_cache, v_cache, cache_len)
 
@@ -91,13 +99,17 @@ def wkv6(r, k, v, loga, u, reset, *, chunk: int, return_state: bool = False):
     if r.device.type == "cpu":
         return ref.wkv6_chunked(r, k, v, loga, u, chunk=chunk, reset=reset,
                                 return_state=return_state)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (r, k, v, loga, u)):
-        if return_state:
-            raise RuntimeError(
-                "wkv6 under grad with return_state: the backward kernel "
-                "takes no gradient of the final state, and no training path "
-                "asks for it; see ROADMAP.md")
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (r, k, v, loga, u))
+    if grad and return_state:
+        raise RuntimeError(
+            "wkv6 under grad with return_state: the backward kernel "
+            "takes no gradient of the final state, and no training path "
+            "asks for it; see ROADMAP.md")
+    if r.device.type == "meta":
+        o, state = _meta.register()(r, k, v, loga, u, reset, chunk)
+        return (o, state) if return_state else o
+    if grad:
         return _WKV6.apply(r, k, v, loga, u, reset, chunk)
     return _wkv6.wkv6(r, k, v, loga, u, reset, chunk=chunk,
                       return_state=return_state)

@@ -146,6 +146,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                              ("cross_v", cross_shape))}
 
 
+def cache_logical_axes(cfg: ModelConfig):
+    kv = ("layers", "batch", "kv_seq", "act_kv_heads", None)
+    cross = ("layers", "batch", None, "act_kv_heads", None)
+    return {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross}
+
+
 def build_cross_cache(params, cfg, enc_out):
     """Per-layer cross K/V from encoder states: (layers, b, F, kh, hd)
     bf16 each."""

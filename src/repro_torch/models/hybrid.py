@@ -159,6 +159,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def cache_logical_axes(cfg: ModelConfig):
+    st = {"ssm": ("layers", "batch", "act_ssm", None, None),
+          "conv": ("layers", "batch", None, "act_ssm")}
+    return {"blocks": st, "tail": dict(st),
+            "k": ("layers", "batch", "kv_seq", "act_kv_heads", None),
+            "v": ("layers", "batch", "kv_seq", "act_kv_heads", None)}
+
+
 def _mamba_step(lp, cfg, h, states, i):
     """One layer's decode step on layer ``i`` of the (layers, ...) state
     stacks ``states``, which it updates in place."""

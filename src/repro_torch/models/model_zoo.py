@@ -9,14 +9,17 @@ off), as serving wants; ``train.train_step.init_train_state`` turns
 the JAX package are ported: dense, and the moe and vlm families, which it
 builds as transformers (``models.transformer``); the Mamba2 hybrid
 (``models.hybrid``); the Whisper encoder-decoder (``models.encdec``); and
-the ssm family, RWKV6 (``models.rwkv_model``).
+the ssm family, RWKV6 (``models.rwkv_model``).  ``build_meta_model``,
+``input_specs`` and ``batch_logical_axes`` give the dry-run
+(``launch.dryrun``) a model and a batch of meta tensors, the port's
+counterpart of the reference's ``ShapeDtypeStruct`` stand-ins.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import params as pdefs
 from repro_torch.models import encdec, hybrid, rwkv_model, transformer
 
@@ -81,6 +84,10 @@ class Model(ParamTree):
         return self._mod.init_cache(self.cfg, batch, max_len, dtype,
                                     self.device)
 
+    def cache_axes(self) -> dict:
+        """The logical axes of ``init_cache``'s tree, leaf by leaf."""
+        return self._mod.cache_logical_axes(self.cfg)
+
 
 def _family(cfg: ModelConfig) -> tuple:
     if cfg.family not in _FAMILIES:
@@ -100,3 +107,62 @@ def build_model(cfg: ModelConfig, generator: torch.Generator,
     defs = model_defs(cfg)
     return Model(cfg, pdefs.init_params(defs, generator, dtype,
                                         generator.device))
+
+
+def build_meta_model(cfg: ModelConfig, dtype=torch.float32) -> Model:
+    """A model whose leaves are meta tensors (each of its ParamDef's own
+    dtype if it has one, else ``dtype``): shapes and dtypes, no storage."""
+    return Model(cfg, pdefs.abstract_params(model_defs(cfg), dtype))
+
+
+# ----------------------------------------------------------- input specs
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta stand-ins for every model input of this cell.
+
+    train/prefill: a packed token batch (+ modality stubs).
+    decode: one new token; the KV cache is built separately by
+    ``Model.init_cache`` on a meta model.
+    """
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "decode":
+        return {"tokens": _meta((b, 1), i32)}
+
+    batch = {
+        "tokens": _meta((b, s), i32),
+        "segment_ids": _meta((b, s), i32),
+        "positions": _meta((b, s), i32),
+    }
+    if shape.kind == "train":
+        batch["labels"] = _meta((b, s), i32)
+    if cfg.family == "vlm" and cfg.image_token_frac > 0:
+        n_img = int(s * cfg.image_token_frac)
+        batch["image_embeds"] = _meta((b, n_img, cfg.d_model), torch.bfloat16)
+        batch["image_positions"] = _meta((b, n_img), i32)
+    if cfg.family == "audio":
+        batch["enc_embeds"] = _meta((b, cfg.encoder_frames, cfg.d_model),
+                                    torch.bfloat16)
+    return batch
+
+
+def batch_logical_axes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Logical sharding axes mirroring ``input_specs``."""
+    if shape.kind == "decode":
+        return {"tokens": ("batch", None)}
+    axes = {
+        "tokens": ("batch", "seq"),
+        "segment_ids": ("batch", "seq"),
+        "positions": ("batch", "seq"),
+    }
+    if shape.kind == "train":
+        axes["labels"] = ("batch", "seq")
+    if cfg.family == "vlm" and cfg.image_token_frac > 0:
+        axes["image_embeds"] = ("batch", "seq", "act_embed")
+        axes["image_positions"] = ("batch", "seq")
+    if cfg.family == "audio":
+        axes["enc_embeds"] = ("batch", "seq", "act_embed")
+    return axes

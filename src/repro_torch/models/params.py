@@ -3,8 +3,10 @@
 Models declare a tree (nested dicts) of :class:`ParamDef`.  The tree's
 key paths, shapes and init rules are those of the JAX package, so a JAX
 parameter tree maps one to one onto the port's ``state_dict`` (paths
-joined by ``.``).  Logical axis names are kept as documentation of each
-dim; the port runs on one device and shards nothing.
+joined by ``.``).  From the same tree come the logical axes of every
+leaf (``logical_specs``), which ``sharding.logical`` maps onto a mesh, and
+meta tensors of every leaf's shape and dtype (``abstract_params``), which
+the dry-run (``launch.dryrun``) traces and counts without allocating.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ SSM_INNER = "ssm_inner"
 CONV = "conv"
 RWKV_HEADS = "rwkv_heads"
 LORA = "lora"
+FRAMES = "frames"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +103,18 @@ def init_params(defs, generator: torch.Generator, dtype=torch.bfloat16,
     ``models.convert.params_from_jax`` instead.
     """
     return tree_map(lambda d: init_param(d, generator, dtype, device), defs)
+
+
+def abstract_params(defs, dtype=torch.bfloat16):
+    """A tree of meta tensors (dry-run: no allocation), each of its leaf's
+    own dtype if it has one, else ``dtype``."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype or dtype,
+                                          device="meta"), defs)
+
+
+def logical_specs(defs):
+    """Tree of logical-axis tuples, mirroring the params tree."""
+    return tree_map(lambda d: d.axes, defs)
 
 
 def unstack(tree, dims: int = 1) -> list:

@@ -104,6 +104,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def cache_logical_axes(cfg: ModelConfig):
+    return {"tm_shift": ("layers", "batch", None, None),
+            "cm_shift": ("layers", "batch", None, None),
+            "wkv": ("layers", "batch", "act_heads", None, None)}
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
     """One decode step.  tokens: (b, 1); ``pos`` is unused (the state
     carries all positional context).

@@ -123,6 +123,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def cache_logical_axes(cfg: ModelConfig):
+    return {"k": ("layers", "batch", "kv_seq", "act_kv_heads", None),
+            "v": ("layers", "batch", "kv_seq", "act_kv_heads", None)}
+
+
 def prefill(params, cfg: ModelConfig, batch):
     """Run the full prompt, return (last-token logits, populated cache)."""
     h = _embed_inputs(params, cfg, batch)
