@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only audio
     python3 chip_smoke.py --only remat
     python3 chip_smoke.py --only dryrun
+    python3 chip_smoke.py --only shard
 
 Phases (any failure raises, and the exit code is not 0):
   1. device  — the card's name, count and power limit; no card, no run.
@@ -101,14 +102,30 @@ Phases (any failure raises, and the exit code is not 0):
                as a DTensor with the sharding rules' placements, its local
                shard bitwise equal to it; then ``python -m
                repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
-               --mesh both`` as a subprocess; the group destroyed.
+               --mesh single`` as a subprocess (bytes, the meta pass and
+               the sharded pass's collectives); the group destroyed.
+  3c. shard  — the sharded step on the same world-of-one nccl mesh: a
+               bf16-compute training step (the loss and every gradient of
+               one forward and backward, then one AdamW step) of qwen3-8b
+               at full width with 2 of 36 layers, then of
+               qwen3-moe-30b-a3b with 1 of 48 (its dispatch and combine
+               through ``local_map``), on DTensors placed by
+               ``TRAIN_RULES`` against the same on plain tensors; then
+               qwen3-8b's prefill of 4 x 512 and 4 decode steps under
+               ``DECODE_RULES``.  Each under ``CommDebugMode``
+               (``launch.collectives.count``): no collective, the launch
+               counts equal to the plain run's, every number bitwise equal
+               (or within the training checks' tolerances, logged).
   4. serve   — ``repro_torch.launch.serve`` on qwen3-8b (36 layers, d_model
                4096), on rwkv6-3b (32 layers, d_model 2560) and on the
                paper's VLM backbone paper-llama-12b (45 layers, d_model
-               4608, 36 heads; 128 of each prompt's 512 positions under
+               4608, 36 heads; a quarter of each prompt's positions under
                image embeddings, whose effect on the prefill is checked),
                each at its published width and depth with random weights
-               from a seed: batch 4, prompt 512, 32 greedy tokens; then the
+               from a seed: batch 4, 32 greedy tokens, a prompt of 512
+               tokens for qwen3-8b and rwkv6-3b and of 128 for every other
+               run (``CUT_PROMPT``: the serve flow replays the prompt one
+               host-bound decode step a token); then the
                MoE family at the same batch: granite-moe-3b-a800m (32
                layers, 40 experts padded to 48, top 8, tied embeddings) at
                full width and depth, and qwen3-moe-30b-a3b (128 experts,
@@ -269,6 +286,9 @@ records: the attention forward and backward on that zamba2-7b's first
 batch, the two wkv6 kernels on rwkv6-3b's.
 ``--only dryrun`` is the short loop for the dry-run: phase 1 and phase 3b;
 it builds and launches no kernel, so its ``kernels`` line is empty.
+``--only shard`` is the short loop for the sharded step: phase 1, the
+builds of the three attention kernels and phase 3c; it times nothing, so
+its ``kernels`` line is empty.
 ``--only bwd`` is the short loop for the backward kernel: phase 1, the
 builds of packed_attention and packed_attention_bwd, the backward checks,
 and the backward's record at the training shape with the live tile pairs
@@ -308,6 +328,17 @@ LSE_TOL = 1e-4
 LOSS_REL_TOL = 2e-3
 GRAD_REL_L2 = 3e-2
 ARCH, BATCH, PROMPT, GEN = "qwen3-8b", 4, 512, 32
+# every serve run but qwen3-8b's (the main path) and rwkv6-3b's (the wkv6
+# record's path) prompts CUT_PROMPT tokens: serving replays the prompt
+# through one host-bound decode step a token, and 512 + 32 steps a run
+# took most of the serve runs' 672.8 s in an earlier full run on an H100;
+# 128 + 32 leave the script room under its time limit
+CUT_PROMPT = 128
+# the sharded step (phase 3c): qwen3-8b at full width with SHARD_LAYERS
+# layers and qwen3-moe-30b-a3b with SHARD_MOE_LAYERS, one training step at
+# TRAIN_BATCH x TRAIN_SEQ; qwen3-8b's prefill of BATCH x PROMPT and
+# SHARD_DECODE_STEPS decode steps
+SHARD_LAYERS, SHARD_MOE_LAYERS, SHARD_DECODE_STEPS = 2, 1, 4
 RWKV_ARCH = "rwkv6-3b"             # served at the same batch, prompt, gen
 # the training run: qwen3-8b at full width with 8 of its 36 layers (the
 # float32 weights, grads and two moments of 36 layers, ~131 GB, do not fit
@@ -2117,10 +2148,12 @@ def _train_want(cfg, steps: int) -> dict:
     return _want(packed_attention=fwd * n, packed_attention_bwd=n)
 
 
-def phase_serve(arch: str, layers: int | None = None) -> tuple[dict, dict]:
+def phase_serve(arch: str, layers: int | None = None,
+                prompt: int = CUT_PROMPT) -> tuple[dict, dict]:
     """Serve ``arch`` at full width through ``serve.main``, or with its
-    first ``layers`` layers (a cut for memory) through ``serve.run``, with
-    every kernel's count set to 0 just before and read just after."""
+    first ``layers`` layers (a cut for memory) through ``serve.run``, on
+    ``BATCH`` prompts of ``prompt`` tokens, with every kernel's count set
+    to 0 just before and read just after."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -2133,16 +2166,16 @@ def phase_serve(arch: str, layers: int | None = None) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     if layers is None:
         out = serve.main(["--arch", arch, "--batch", str(BATCH),
-                          "--prompt-len", str(PROMPT), "--gen", str(GEN)])
+                          "--prompt-len", str(prompt), "--gen", str(GEN)])
     else:
         cfg = cfg.replace(num_layers=layers)
         arch = f"{arch}:{layers}-of-{depth}-layers"
-        out = serve.run(cfg, BATCH, PROMPT, GEN, torch.device("cuda"))
+        out = serve.run(cfg, BATCH, prompt, GEN, torch.device("cuda"))
     counts = _launch_counts()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     log(f"[serve] {arch} layers={cfg.num_layers} of {depth} "
-        f"d_model={cfg.d_model} batch={BATCH} prompt={PROMPT} gen={GEN} "
+        f"d_model={cfg.d_model} batch={BATCH} prompt={prompt} gen={GEN} "
         f"({wall:.1f}s in serve, weights drawn and cast included)")
     log(f"[serve] {arch} prefill_s={out['prefill_s']:.4f} "
         f"decode_tok_s={out['decode_tok_s']:.2f} "
@@ -2154,7 +2187,7 @@ def phase_serve(arch: str, layers: int | None = None) -> tuple[dict, dict]:
         want = _want(wkv6=cfg.num_layers)
     else:
         pre, dec = _attention_calls(cfg)
-        want = _want(packed_attention=pre, flash_decode=dec * (PROMPT + GEN))
+        want = _want(packed_attention=pre, flash_decode=dec * (prompt + GEN))
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != expected {want}")
     for key in ("prefill_logits", "logits"):
@@ -2168,6 +2201,11 @@ def phase_serve(arch: str, layers: int | None = None) -> tuple[dict, dict]:
     return counts, out
 
 
+def _prompt(served: dict) -> int:
+    """The prompt length of a serve run."""
+    return served["batch"]["tokens"].shape[1]
+
+
 def _check_image_fusion(arch: str, out: dict):
     """The serve run's prompt carried image embeddings: its prefill logits
     must move when the same prompt is prefilled without them (the launch
@@ -2177,7 +2215,7 @@ def _check_image_fusion(arch: str, out: dict):
     text = {k: batch[k] for k in ("tokens", "segment_ids", "positions")}
     logits, _ = out["prefill"](text)
     moved = (logits.float() - out["prefill_logits"].float()).abs().max()
-    log(f"[serve] {arch}: {n} of {PROMPT} positions a row under image "
+    log(f"[serve] {arch}: {n} of {_prompt(out)} positions a row under image "
         f"embeddings (positions 0..{n - 1}); without them the prefill's last "
         f"logits move by max {moved.item():.4e}")
     if not moved > 0:
@@ -3379,25 +3417,26 @@ def _device_kernels(prof) -> list:
 
 def phase_trace_decode(arch: str, served: dict, steps: int = 4):
     """Profile ``steps`` decode steps of the serve run's own bf16 model on
-    its float32 cache, at the first positions the serve run decoded
-    (``PROMPT ..``), so attention reads the cache length it read there:
+    its float32 cache, at the first positions the serve run decoded (its
+    prompt's length on), so attention reads the cache length it read there:
     wall time per step, the device's busy share, and device time by kernel.
     Rewriting those cache rows (or stepping the RWKV state on) changes no
     shape or launch."""
     from torch.profiler import ProfilerActivity, profile
     decode, cache = served["decode"], served["cache"]
     tokens = torch.ones((BATCH, 1), dtype=torch.int32, device="cuda")
+    first = _prompt(served)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(PROMPT, PROMPT + steps):
+        for t in range(first, first + steps):
             decode(cache, tokens, t)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = _device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    log(f"[trace] {arch} decode step at positions {PROMPT}..{PROMPT + steps}"
+    log(f"[trace] {arch} decode step at positions {first}..{first + steps}"
         f": wall_ms={wall_ms:.3f} (profiler on) "
         f"device_busy_ms={busy_ms:.3f} busy_share={busy_ms / wall_ms:.4f} "
         f"kernel_launches_per_step={sum(e.count for e in kernels) / steps}")
@@ -3424,7 +3463,8 @@ def phase_trace_prefill(arch: str, served: dict):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     ours = {n: sum(e.self_device_time_total for e in kernels if n in e.key)
             / 1e3 for n in ("wkv6", "packed_attention")}
-    log(f"[trace] {arch} prefill {BATCH}x{PROMPT}: wall_ms={wall_ms:.3f} "
+    log(f"[trace] {arch} prefill {BATCH}x{_prompt(served)}: "
+        f"wall_ms={wall_ms:.3f} "
         f"(profiler on) device_busy_ms={busy_ms:.3f} "
         f"busy_share={busy_ms / wall_ms:.4f} "
         f"kernel_launches={sum(e.count for e in kernels)} " + " ".join(
@@ -3941,7 +3981,8 @@ def phase_train_whisper() -> dict:
 def _check_whisper_cross_decode(served: dict, steps: int = 4):
     """At full width, after the serve run's counts were read: the serve
     run's own bf16 model prefills its prompt again, the prefill's self k/v
-    and cross k/v go into a float32 cache of PROMPT + ``steps`` positions,
+    and cross k/v go into a float32 cache of ``steps`` positions past the
+    prompt,
     and ``steps`` decode steps read them, so flash_decode reads the
     1500-frame cross cache's real values (the serve flow decodes against
     zeros there, ROADMAP C5).  Their logits must be finite and must move
@@ -3951,9 +3992,10 @@ def _check_whisper_cross_decode(served: dict, steps: int = 4):
     prefill, decode, batch, model = (served[k] for k in (
         "prefill", "decode", "batch", "model"))
     _, kv = prefill(batch)
-    cache = model.init_cache(BATCH, PROMPT + steps, torch.float32)
+    prompt = _prompt(served)
+    cache = model.init_cache(BATCH, prompt + steps, torch.float32)
     for n in ("k", "v"):
-        cache[n][:, :, :PROMPT] = kv[n]
+        cache[n][:, :, :prompt] = kv[n]
     for n in ("cross_k", "cross_v"):
         cache[n].copy_(kv[n])
     zero = {n: t.clone() for n, t in cache.items()}
@@ -3962,16 +4004,16 @@ def _check_whisper_cross_decode(served: dict, steps: int = 4):
     feed = batch["tokens"][:, :steps]          # any tokens: the same twice
     real_logits, zero_logits = [], []
     for t in range(steps):
-        real_logits.append(decode(cache, feed[:, t:t + 1], PROMPT + t)[0])
-        zero_logits.append(decode(zero, feed[:, t:t + 1], PROMPT + t)[0])
+        real_logits.append(decode(cache, feed[:, t:t + 1], prompt + t)[0])
+        zero_logits.append(decode(zero, feed[:, t:t + 1], prompt + t)[0])
     real, zeroed = torch.cat(real_logits, 1), torch.cat(zero_logits, 1)
     full = dict(batch, tokens=torch.cat([batch["tokens"], feed], 1),
-                segment_ids=torch.ones((BATCH, PROMPT + steps),
+                segment_ids=torch.ones((BATCH, prompt + steps),
                                        dtype=torch.int32, device="cuda"),
-                positions=torch.arange(PROMPT + steps, dtype=torch.int32,
+                positions=torch.arange(prompt + steps, dtype=torch.int32,
                                        device="cuda").expand(BATCH, -1))
     with torch.no_grad():
-        fwd = model(full)[0][:, PROMPT:].float()
+        fwd = model(full)[0][:, prompt:].float()
     moved = (real.float() - zeroed.float()).abs().max().item()
     dist = (real.float() - fwd).abs().max().item()
     agree = (real.argmax(-1) == fwd.argmax(-1)).float().mean().item()
@@ -4277,27 +4319,223 @@ def phase_dryrun():
         t1 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             ARCH, "--shape", "train_4k", "--mesh", "both", "--out", out],
+             ARCH, "--shape", "train_4k", "--mesh", "single", "--out", out],
             capture_output=True, text=True, timeout=300,
             env=dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(
                 os.path.abspath(__file__)), "src")))
         wall = time.perf_counter() - t1
         if proc.returncode != 0:
             raise AssertionError(f"dryrun CLI failed: {proc.stderr[-3000:]}")
-        for m in ("single", "multi"):
-            rec = json.loads(open(os.path.join(
-                out, f"{ARCH}__train_4k__{m}.json")).read())
-            if rec["status"] != "ok":
-                raise AssertionError(f"dryrun {m}: {rec}")
-            log(f"[dryrun] CLI {ARCH} train_4k {m}: persistent_bytes_per_"
-                f"device={rec['persistent_bytes_per_device']} "
-                f"({rec['persistent_bytes_per_device'] / 2**30:.2f} GiB) "
-                f"model_flops={rec['model_flops']:.6e} "
-                f"op_flops={rec['op_flops']} op_bytes={rec['op_bytes']} "
-                f"op_count={rec['op_count']} trace_s={rec['trace_s']} "
-                f"dropped={len(rec['dropped_shardings'])}")
+        rec = json.loads(open(os.path.join(
+            out, f"{ARCH}__train_4k__single.json")).read())
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun single: {rec}")
+        log(f"[dryrun] CLI {ARCH} train_4k single: persistent_bytes_per_"
+            f"device={rec['persistent_bytes_per_device']} "
+            f"({rec['persistent_bytes_per_device'] / 2**30:.2f} GiB) "
+            f"model_flops={rec['model_flops']:.6e} "
+            f"op_flops={rec['op_flops']} op_bytes={rec['op_bytes']} "
+            f"op_count={rec['op_count']} trace_s={rec['trace_s']} "
+            f"dropped={len(rec['dropped_shardings'])} "
+            f"collective_counts={rec['collective_counts']} "
+            f"collective_wire_bytes={rec['collective_wire_bytes']}")
     phase_s = time.perf_counter() - t0
     log(f"[dryrun] CLI subprocess {wall:.1f}s; phase {phase_s:.1f}s on {smi}")
+
+
+# ------------------------------------------------------------- 3c. shard
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _distance(got: dict, want: dict) -> tuple[bool, float, float, str]:
+    """(every tensor bitwise equal, the largest max abs difference, the
+    worst relative L2 and its key) of two dicts of CPU tensors."""
+    bitwise, worst_abs, worst = True, 0.0, (0.0, "")
+    for key, w in want.items():
+        g = got[key]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{key}: {g.dtype} {tuple(g.shape)} "
+                                 f"against {w.dtype} {tuple(w.shape)}")
+        if torch.equal(g, w):
+            continue
+        bitwise = False
+        d = (g.double() - w.double())
+        worst_abs = max(worst_abs, d.abs().max().item())
+        norm = torch.linalg.vector_norm(w.double()).item()
+        rel = torch.linalg.vector_norm(d).item() / max(norm, 1e-30)
+        worst = max(worst, (rel, key))
+    return bitwise, worst_abs, worst[0], worst[1]
+
+
+def _train_once(model, batch) -> dict:
+    """The loss and every gradient of one forward and backward, then one
+    AdamW step through ``train_step``, on ``model``'s leaves (plain tensors
+    or DTensors): every number on the CPU, with the launch counts."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.train_step import (
+        init_train_state, make_loss_fn, make_train_step,
+    )
+    state = init_train_state(model)
+    _zero_launch_counts()
+    total, _ = make_loss_fn(model)(state.params, batch)
+    total.backward()
+    out = {"loss": {"loss": _full(total).detach().float().cpu()},
+           "grads": {}, "after": {}}
+    for path, p in tree_leaves(state.params):
+        out["grads"][path], p.grad = _full(p.grad).cpu(), None
+    state, _ = make_train_step(model)(state, batch)
+    for path, p in tree_leaves(state.params):
+        out["after"][path] = _full(p).detach().cpu()
+    out["counts"] = _launch_counts()
+    return out
+
+
+def _serve_once(model, batch, steps: int) -> dict:
+    """The prefill logits of ``batch`` and ``steps`` decode steps on an
+    empty float32 cache (the prompt's first tokens, as serving replays
+    it), on the CPU, with the launch counts; ``batch`` and the cache are
+    distributed by the rules in use when the model's leaves are DTensors."""
+    from repro_torch.models.model_zoo import batch_logical_axes
+    from repro_torch.sharding.logical import (
+        current_rules, distribute, distribute_tree, dtensor_mesh,
+    )
+    from repro_torch.train.train_step import (
+        make_decode_step, make_prefill_step,
+    )
+    b, s = batch["tokens"].shape
+    cache = model.init_cache(b, s + GEN, torch.float32)
+    tokens = batch["tokens"]
+    rules = current_rules()
+    if dtensor_mesh(model.embed.table) is not None:
+        from repro_torch.configs import ShapeConfig
+        axes = batch_logical_axes(model.cfg, ShapeConfig("p", "prefill", s, b))
+        batch = distribute_tree(batch, axes, rules)
+        cache = distribute_tree(cache, model.cache_axes(), rules)
+        tokens = distribute(tokens, rules.spec(("batch", None), (b, s)),
+                            rules.mesh)
+    _zero_launch_counts()
+    logits, _ = make_prefill_step(model)(batch)
+    out = {"prefill": {"logits": _full(logits).float().cpu()}, "decode": {}}
+    step = make_decode_step(model)
+    for t in range(steps):
+        logits, cache = step(cache, tokens[:, t:t + 1], t)
+        out["decode"][f"step {t}"] = _full(logits).float().cpu()
+    out["counts"] = _launch_counts()
+    return out
+
+
+def _sharded_against_plain(what: str, run, arch: str, layers: int,
+                           mapping_name: str, batch) -> dict:
+    """``run(model, batch)`` on ``arch`` at full width with ``layers``
+    layers (weights from one seed), first on plain tensors, then with every
+    leaf a DTensor placed by ``mapping_name``'s rules on the world-of-one
+    nccl mesh under ``use_rules`` and ``collectives.count``: the same
+    numbers (bitwise, or within LOSS_REL_TOL and GRAD_REL_L2), the same
+    launch counts, and no collective."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import collectives, mesh as lmesh
+    from repro_torch.models.model_zoo import build_model, distribute_model
+    from repro_torch.sharding import logical
+    cfg = get_config(arch).replace(num_layers=layers)
+    mapping = getattr(logical, mapping_name)
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return build_model(cfg, torch.Generator("cuda").manual_seed(
+            TRAIN_SEED), torch.float32)
+    plain = run(fresh(), batch)
+    mesh = lmesh.make_local_mesh("cuda")
+    try:
+        model = fresh()
+        with logical.use_rules(mesh, mapping):
+            distribute_model(model, mesh, mapping)
+            got, tally = collectives.count(run, model, batch)
+        del model
+    finally:
+        lmesh.close_local_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tag = f"[shard] {what}: {arch} {layers} of {get_config(arch).num_layers}"
+    if got["counts"] != plain["counts"]:
+        raise AssertionError(f"{tag}: launches {got['counts']} on DTensors, "
+                             f"{plain['counts']} on plain tensors")
+    log(f"{tag} launches {got['counts']} on both; collectives "
+        f"{tally.counts} (total {tally.total})")
+    if tally.total:
+        raise AssertionError(f"{tag}: a world of one issued collectives")
+    for part in (k for k in plain if k != "counts"):
+        bitwise, mx, rel, key = _distance(got[part], plain[part])
+        limit = LOSS_REL_TOL if part in ("loss", "prefill") else GRAD_REL_L2
+        ok = bitwise or rel <= limit
+        how = "bitwise equal" if bitwise else (
+            f"not bitwise: max abs {mx:.3e}, worst relative L2 {rel:.3e} "
+            f"({key}; limit {limit:g})")
+        log(f"{tag} {part} ({len(plain[part])} tensors) DTensor against "
+            f"plain: {how} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: {part} disagrees")
+    return plain["counts"]
+
+
+def phase_shard():
+    """Phase 3c: the sharded step on the world-of-one nccl mesh.  qwen3-8b
+    at full width with SHARD_LAYERS layers and qwen3-moe-30b-a3b with
+    SHARD_MOE_LAYERS (the MoE's dispatch and combine through
+    ``local_map``): a bf16-compute train step on DTensors placed by
+    ``TRAIN_RULES`` against the same step on plain tensors; then qwen3-8b's
+    prefill and SHARD_DECODE_STEPS decode steps under ``DECODE_RULES``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(TRAIN_SEED)
+    seg = _data_plane_segs(rng, TRAIN_BATCH, TRAIN_SEQ)
+    for arch, layers in ((ARCH, SHARD_LAYERS), (MOE_ARCH, SHARD_MOE_LAYERS)):
+        cfg = get_config(arch).replace(num_layers=layers)
+        batch = _lm_batch(rng, cfg.vocab_size, seg, next_token=True)
+        calls = []
+        local = moe.batch_local
+        moe.batch_local = lambda *a, **k: calls.append(1) or local(*a, **k)
+        try:
+            counts = _sharded_against_plain(
+                "train step", _train_once, arch, layers, "TRAIN_RULES", batch)
+        finally:
+            moe.batch_local = local
+        if counts != _train_want(cfg, 2):
+            raise AssertionError(f"{arch}: launches {counts}")
+        if cfg.family == "moe":
+            # routing, dispatch and combine, a layer, in the forward and
+            # the recompute, of the loss's pass and of the train step's
+            want = 3 * 2 * 2 * layers
+            log(f"[shard] {arch}: the routing and _shmap_batch ran "
+                f"local_map {len(calls)} times (want {want})")
+            if len(calls) != want:
+                raise AssertionError("the MoE did not run batch-local")
+    cfg = get_config(ARCH)
+    prompt = {k: v for k, v in _lm_batch(
+        rng, cfg.vocab_size, np.ones((BATCH, PROMPT), np.int32)).items()
+        if k != "labels"}
+    counts = _sharded_against_plain(
+        "prefill and decode", lambda m, b: _serve_once(m, b,
+                                                       SHARD_DECODE_STEPS),
+        ARCH, SHARD_LAYERS, "DECODE_RULES", prompt)
+    want = _want(packed_attention=SHARD_LAYERS,
+                 flash_decode=SHARD_LAYERS * SHARD_DECODE_STEPS)
+    if counts != want:
+        raise AssertionError(f"prefill and decode launched {counts}")
+    if torch.distributed.is_initialized():
+        raise AssertionError("the local mesh's process group outlived it")
+    log(f"[shard] phase {time.perf_counter() - t0:.1f}s")
+
+
+def main_shard():
+    """``--only shard``: the three attention kernels' build and phase 3c;
+    nothing is timed, so its ``kernels`` line is empty."""
+    phase_build(("packed_attention", "packed_attention_bwd", "flash_decode"))
+    phase_shard()
+    return []
 
 
 def main_dryrun():
@@ -4311,7 +4549,8 @@ def main():
     parser.add_argument("--only", choices=["wkv6", "train", "bwd",
                                            "trainer", "vlm", "moe",
                                            "rwkvtrain", "dense", "hybrid",
-                                           "audio", "remat", "dryrun"],
+                                           "audio", "remat", "dryrun",
+                                           "shard"],
                         default=None, help="run only this path's builds, "
                         "checks and timing")
     args = parser.parse_args()
@@ -4326,7 +4565,7 @@ def main():
                    "rwkvtrain": main_rwkvtrain,
                    "dense": main_dense, "hybrid": main_hybrid,
                    "audio": main_audio, "remat": main_remat,
-                   "dryrun": main_dryrun}[args.only]()
+                   "dryrun": main_dryrun, "shard": main_shard}[args.only]()
         log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {
@@ -4349,12 +4588,15 @@ def main():
     stamp("the checks")
     phase_dryrun()
     stamp("phase 3b")
+    phase_shard()
+    stamp("phase 3c")
     paths = {}          # each path's launch counts, from its own zeroed run
-    paths[f"serve:{ARCH}"], served = phase_serve(ARCH)
+    paths[f"serve:{ARCH}"], served = phase_serve(ARCH, prompt=PROMPT)
     phase_trace_prefill(ARCH, served)
     phase_trace_decode(ARCH, served)
     del served          # frees the 16.4 GB of bf16 qwen3-8b weights
-    paths[f"serve:{RWKV_ARCH}"], served = phase_serve(RWKV_ARCH)
+    paths[f"serve:{RWKV_ARCH}"], served = phase_serve(RWKV_ARCH,
+                                                      prompt=PROMPT)
     phase_trace_prefill(RWKV_ARCH, served)
     phase_trace_decode(RWKV_ARCH, served)
     del served          # frees the 6.2 GB of bf16 rwkv6-3b weights

@@ -19,22 +19,35 @@ decode step (at the cache's last position) on the meta cache.  The meshes
 are the production ones (``single`` 16 x 16, ``multi`` 2 x 16 x 16) and
 ``local``, the (1, 1) mesh of one card.
 
+Then it runs the same step once more, sharded (``collective_pass``): on
+the cell's mesh as a fake ``DeviceMesh`` (``launch.collectives``), under
+``use_rules(mesh, rules_for(shape))``, with the params, moments and cache
+DTensors of meta shards placed by the rules that count
+``persistent_bytes_per_device`` and the batch placed by
+``batch_logical_axes``; the models' ``shard`` constraints and DTensor's
+own redistributions issue the collectives that ``launch.collectives``
+counts.
+
 A record has the reference's keys where the port has the quantity:
 ``arch``, ``shape``, ``mesh``, ``status`` (``ok``; ``skipped`` with the
 reference's ``reason``; ``error`` with the traceback), ``params``,
 ``persistent_bytes_per_device``, ``model_flops``, ``dropped_shardings``
-and ``trace_s`` (the seconds of the meta pass).  It adds ``op_flops``,
-``op_bytes`` and ``op_count``: the whole global step's counts on one
-device, the same on every mesh (the meta pass runs once per arch and
-shape).  The reference's ``hlo_flops`` are per device after SPMD
+(the reference's list: the fallbacks of the params', cache's and batch's
+specs, not of the activations'), ``trace_s`` (the seconds of the meta
+pass), and ``collective_counts``, ``collective_result_bytes`` and
+``collective_wire_bytes`` (per device, by the reference's kinds).  It adds
+``op_flops``, ``op_bytes`` and ``op_count``: the whole global step's
+counts on one device, the same on every mesh (the meta pass runs once per
+arch and shape).  The reference's ``hlo_flops`` are per device after SPMD
 partitioning, so the two do not compare.  It leaves out ``compile_s``,
-``memory_analysis``, ``hlo_*``, ``collective_*`` and ``while_trips``: the
-port compiles no program, so there is no compiled HLO, memory analysis or
-loop nest to read, and no collective is placed (ROADMAP.md, A9b).
+``memory_analysis``, ``hlo_*`` and ``while_trips``: the port compiles no
+program, so there is no compiled HLO, memory analysis or loop nest to
+read.  The collectives are DTensor's choices, not GSPMD's; PERF.md
+compares the two.
 
 Meta tensors hold no data, so the dry-run runs the same on any machine: it
-touches no device, starts no process group and sets no environment
-variable.
+touches no device and sets no environment variable, and the fake process
+group of the sharded pass ends with it.
 """
 from __future__ import annotations
 
@@ -48,25 +61,21 @@ from repro_torch.configs.base import (
     SHAPES, ModelConfig, ShapeConfig, assigned_archs, get_config,
     shape_applicable,
 )
-from repro_torch.launch.mesh import MeshShape, make_production_mesh
+from repro_torch.launch import collectives
+from repro_torch.launch.mesh import named_mesh
 from repro_torch.launch.op_cost import measure
 from repro_torch.models import params as pdefs
 from repro_torch.models.model_zoo import (
-    batch_logical_axes, build_meta_model, input_specs, model_defs,
+    batch_logical_axes, build_meta_model, distribute_model, input_specs,
+    model_defs,
 )
 from repro_torch.sharding.logical import (
     DECODE_RULES, LONG_DECODE_RULES, TRAIN_RULES, NamedSharding,
-    ShardingRules,
+    ShardingRules, distribute, distribute_tree, use_rules,
 )
 from repro_torch.train.train_step import (
     init_train_state, make_decode_step, make_prefill_step, make_train_step,
 )
-
-def make_mesh(name: str) -> MeshShape:
-    if name == "local":
-        return MeshShape(("data", "model"), (1, 1))
-    return make_production_mesh(multi_pod=name == "multi")
-
 
 def rules_for(shape: ShapeConfig):
     if shape.kind != "decode":
@@ -171,11 +180,42 @@ def op_pass(cfg: ModelConfig, shape: ShapeConfig) -> dict:
             "op_count": cost.ops}
 
 
+def collective_pass(cfg: ModelConfig, shape: ShapeConfig, mesh_name) -> dict:
+    """The cell's step once, sharded on meta DTensors on a fake
+    ``mesh_name`` mesh (a name or a ``MeshShape``): the three
+    ``collective_*`` keys."""
+    mapping = rules_for(shape)
+    model = build_meta_model(cfg)
+    with collectives.fake_mesh(mesh_name) as mesh, \
+            use_rules(mesh, mapping) as rules:
+        distribute_model(model, mesh, mapping)
+        batch = input_specs(cfg, shape)
+        if shape.kind == "decode":
+            b, S = shape.global_batch, shape.seq_len
+            cache = distribute_tree(model.init_cache(b, S),
+                                    model.cache_axes(), rules)
+            tokens = distribute(batch["tokens"],
+                                rules.spec(("batch", None), (b, 1)), mesh)
+            _, tally = collectives.count(make_decode_step(model), cache,
+                                         tokens, S - 1)
+        else:
+            batch = distribute_tree(batch, batch_logical_axes(cfg, shape),
+                                    rules)
+            if shape.kind == "train":
+                _, tally = collectives.count(make_train_step(model),
+                                             init_train_state(model), batch)
+            else:
+                _, tally = collectives.count(make_prefill_step(model), batch)
+    return {"collective_counts": tally.counts,
+            "collective_result_bytes": tally.result_bytes,
+            "collective_wire_bytes": tally.wire_bytes}
+
+
 def lower_cell(arch: str, shape_name: str, mesh_name: str, *,
                ops: bool = True, op_cache: dict | None = None) -> dict:
-    """One cell's record.  ``ops=False`` skips the meta pass (its keys are
-    then null); ``op_cache`` keeps each (arch, shape)'s pass for the other
-    meshes."""
+    """One cell's record.  ``ops=False`` skips the meta pass and the
+    sharded pass (their keys are then null); ``op_cache`` keeps each
+    (arch, shape)'s meta pass for the other meshes."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
@@ -184,7 +224,7 @@ def lower_cell(arch: str, shape_name: str, mesh_name: str, *,
                 "status": "skipped", "reason": why}
 
     model = build_meta_model(cfg)
-    mesh = make_mesh(mesh_name)
+    mesh = named_mesh(mesh_name)
     rules = ShardingRules(mesh, rules_for(shape))
     n_params = pdefs.param_count(model_defs(cfg))
     record = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
@@ -199,14 +239,16 @@ def lower_cell(arch: str, shape_name: str, mesh_name: str, *,
     record["model_flops"] = model_flops(cfg, shape, n_params)
     record["dropped_shardings"] = [
         f"{l}:{d}:{a}" for (l, d, a) in rules.dropped[:20]]
-    passed = {"trace_s": None, "op_flops": None, "op_bytes": None,
-              "op_count": None}
+    passed = dict.fromkeys(("trace_s", "op_flops", "op_bytes", "op_count",
+                            "collective_counts", "collective_result_bytes",
+                            "collective_wire_bytes"))
     if ops:
         key = (arch, shape_name)
         cache = {} if op_cache is None else op_cache
         if key not in cache:
             cache[key] = op_pass(cfg, shape)
-        passed = cache[key]
+        passed.update(cache[key])
+        passed.update(collective_pass(cfg, shape, mesh_name))
     record.update(passed)
     return record
 
@@ -253,8 +295,10 @@ def main(argv=None):
                     gib = rec["persistent_bytes_per_device"] / 2**30
                     extra = f" persistent={gib:.2f}GiB/dev"
                     if rec["op_flops"] is not None:
+                        wire = sum(rec["collective_wire_bytes"].values())
                         extra += (f" op_flops={rec['op_flops']:.3e}"
-                                  f" trace={rec['trace_s']}s")
+                                  f" trace={rec['trace_s']}s"
+                                  f" wire={wire / 2**30:.2f}GiB/dev")
                 print(f"  -> {rec['status']}{extra}", flush=True)
 
 

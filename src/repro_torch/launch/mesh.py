@@ -39,6 +39,16 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape(("data", "model"), (16, 16))
 
 
+def named_mesh(name) -> MeshShape:
+    """The dry-run's meshes by name: ``single`` 16 x 16, ``multi`` 2 x 16 x
+    16, ``local`` 1 x 1 (one card); a ``MeshShape`` is itself."""
+    if isinstance(name, MeshShape):
+        return name
+    if name == "local":
+        return MeshShape(("data", "model"), (1, 1))
+    return make_production_mesh(multi_pod=name == "multi")
+
+
 # Whether make_local_mesh started the default process group, which is
 # itself process-wide state: close_local_mesh destroys only that one.
 _started_group = False

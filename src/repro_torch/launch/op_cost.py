@@ -18,8 +18,8 @@ runs a step once under two dispatch modes and sums what they see.
 
 All three are global quantities for the whole step on one device.  They
 are counted on whatever device the step's tensors are on; on meta tensors
-nothing is allocated or computed.  The reference's HLO parser and its
-collective counts have no counterpart here (ROADMAP.md).
+nothing is allocated or computed.  The reference's HLO parser has no
+counterpart; its collective counts are ``launch.collectives``'.
 """
 from __future__ import annotations
 

@@ -7,6 +7,8 @@ The port of ``repro.models.attention``, in its layouts (b, s, h, d):
   * ``full_segment_attention`` — unchunked plain oracle (tests).
   * ``decode_attention``       — one-token step against a KV cache; goes
                                  through ``kernels.ops.decode_attention``.
+  * ``write_position``         — a decode step's in-place write of its new
+                                 k or v row into a cache, DTensor or not.
 
 Packing semantics: segment id 0 marks padding; q attends to k iff
 ``seg_q == seg_k != 0`` and (causal) buffer index ``k <= q``.  GQA K/V are
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.logical import dtensor_mesh
 
 NEG_INF = -1e30
 
@@ -80,3 +83,29 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     out = ops.decode_attention(q[:, 0], k_cache.transpose(1, 2),
                                v_cache.transpose(1, 2), cache_len)
     return out[:, None]
+
+
+def write_position(cache, pos: int, row) -> None:
+    """``cache[:, pos] = row`` in place, cast to the cache's dtype.  cache:
+    (b, S, ...); row: (b, ...).  On a DTensor cache, whose ``S`` may be
+    sharded (``DECODE_RULES``' ``kv_seq``), ``row`` is placed like the
+    cache without ``S`` and the rank whose shard holds ``pos`` writes it
+    into its local shard; the others write nothing."""
+    mesh = dtensor_mesh(cache)
+    if mesh is None:
+        cache[:, pos] = row
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+    want = [Shard(p.dim - (p.dim > 1)) if p.is_shard() and p.dim != 1
+            else Replicate() for p in cache.placements]
+    if not isinstance(row, DTensor):
+        row = DTensor.from_local(row, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    row = row.redistribute(mesh, want).to_local()
+    shape, first = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    if first[1] <= pos < first[1] + shape[1]:
+        cache.to_local()[:, pos - first[1]] = row

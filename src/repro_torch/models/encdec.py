@@ -20,11 +20,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.attention import decode_attention, segment_attention
+from repro_torch.models.attention import (
+    decode_attention, segment_attention, write_position,
+)
 from repro_torch.models.params import (
     EMBED, VOCAB, ParamDef, stacked, unstack,
 )
 from repro_torch.models.remat import remat, whole_layer
+from repro_torch.sharding.logical import shard
 
 
 def _enc_layer_def(cfg) -> dict:
@@ -65,7 +68,7 @@ def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor
     the promoted dtype of the embeddings and the weights.  Under grad each
     layer is checkpointed unless ``cfg.remat`` is ``"none"``, as in JAX."""
     b, F_, _ = enc_embeds.shape
-    h = enc_embeds
+    h = shard(enc_embeds, "batch", "seq", "act_embed")
     pos = torch.arange(F_, dtype=torch.int32, device=h.device).expand(b, F_)
     ones = _ones(b, F_, h.device)
 
@@ -74,7 +77,7 @@ def encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor
         q, k, v = L.qkv_project(lp["attn"], cfg, x, pos)
         attn = segment_attention(q, k, v, ones, ones, causal=False)
         h = h + L.attn_out_project(lp["attn"], attn)
-        return _mlp(lp, cfg, h)
+        return shard(_mlp(lp, cfg, h), "batch", "seq", "act_embed")
 
     body = remat(layer_fn, whole_layer(cfg.remat))
     for lp in unstack(params["enc_layers"]):
@@ -119,18 +122,19 @@ def forward(params, cfg: ModelConfig, batch):
     enc_out = encode(params, cfg, batch["enc_embeds"])
     enc_valid = _ones(*enc_out.shape[:2], enc_out.device)
     seg, pos = batch["segment_ids"], batch["positions"]
-    h = L.embed(params["embed"], batch["tokens"])
+    h = shard(L.embed(params["embed"], batch["tokens"]), "batch", "seq",
+              "act_embed")
 
     def layer_fn(h, enc_out, lp):
         h = _self_attn(lp, cfg, h, seg, pos)[0]
         h = _cross_block(lp, cfg, h, enc_out, enc_valid)
-        return _mlp(lp, cfg, h)
+        return shard(_mlp(lp, cfg, h), "batch", "seq", "act_embed")
 
     body = remat(layer_fn, whole_layer(cfg.remat))
     for lp in unstack(params["dec_layers"]):
         h = body(h, enc_out, lp)
-    return _head(params, cfg, h), torch.zeros((), dtype=torch.float32,
-                                              device=h.device)
+    logits = shard(_head(params, cfg, h), "batch", "seq", "act_vocab")
+    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 # ---------------------------------------------------------------- serving
@@ -170,7 +174,8 @@ def prefill(params, cfg: ModelConfig, batch):
     enc_valid = _ones(*enc_out.shape[:2], enc_out.device)
     cross_k, cross_v = build_cross_cache(params, cfg, enc_out)
     seg, pos = batch["segment_ids"], batch["positions"]
-    h = L.embed(params["embed"], batch["tokens"])
+    h = shard(L.embed(params["embed"], batch["tokens"]), "batch", "seq",
+              "act_embed")
     ks, vs = [], []
     for i, lp in enumerate(unstack(params["dec_layers"])):
         h, k, v = _self_attn(lp, cfg, h, seg, pos)
@@ -212,8 +217,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
         x = L.layernorm(lp["attn_norm"], h, cfg.norm_eps)
         q, k, v = L.qkv_project(lp["attn"], cfg, x, positions)
         ck, cv = cache["k"][i], cache["v"][i]           # (b, S, kh, hd)
-        ck[:, pos] = k[:, 0]                            # casts to the cache's
-        cv[:, pos] = v[:, 0]                            # dtype, as astype does
+        write_position(ck, pos, k[:, 0])                # casts to the cache's
+        write_position(cv, pos, v[:, 0])                # dtype, as astype does
         h = h + L.attn_out_project(lp["attn"],
                                    decode_attention(q, ck, cv, cache_len))
         # cross attention vs static cross cache

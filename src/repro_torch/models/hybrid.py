@@ -17,11 +17,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
-from repro_torch.models.attention import decode_attention, segment_attention
+from repro_torch.models.attention import (
+    decode_attention, segment_attention, write_position,
+)
 from repro_torch.models.params import (
     EMBED, VOCAB, ParamDef, stacked, unstack,
 )
 from repro_torch.models.remat import remat, whole_layer
+from repro_torch.sharding.logical import shard
 
 
 def _split_counts(cfg: ModelConfig) -> tuple[int, int]:
@@ -87,13 +90,15 @@ def forward(params, cfg: ModelConfig, batch):
     Mamba2 layers and the shared block) is one checkpoint unless
     ``cfg.remat`` is ``"none"``; the tail is not checkpointed, as in JAX."""
     seg, pos = batch["segment_ids"], batch["positions"]
-    h = L.embed(params["embed"], batch["tokens"])
+    h = shard(L.embed(params["embed"], batch["tokens"]), "batch", "seq",
+              "act_embed")
     blocks, tail = _mamba_layers(params)
 
     def block_fn(h, sp, *layers):
         for lp in layers:
             h = _mamba_layer(lp, cfg, h, seg)
-        return _shared_attn_apply(sp, cfg, h, seg, pos)[0]
+        h = _shared_attn_apply(sp, cfg, h, seg, pos)[0]
+        return shard(h, "batch", "seq", "act_embed")
 
     body = remat(block_fn, whole_layer(cfg.remat))
     for i in range(len(blocks) // cfg.attn_every):
@@ -101,8 +106,8 @@ def forward(params, cfg: ModelConfig, batch):
                  *blocks[i * cfg.attn_every:(i + 1) * cfg.attn_every])
     for lp in tail:
         h = _mamba_layer(lp, cfg, h, seg)
-    return _head(params, cfg, h), torch.zeros((), dtype=torch.float32,
-                                              device=h.device)
+    logits = shard(_head(params, cfg, h), "batch", "seq", "act_vocab")
+    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def prefill(params, cfg: ModelConfig, batch):
@@ -110,7 +115,8 @@ def prefill(params, cfg: ModelConfig, batch):
     Mamba2 states of every layer (float32; ``blocks`` flat, ``tail``) and
     the shared block's k and v of every application (bf16)."""
     seg, pos = batch["segment_ids"], batch["positions"]
-    h = L.embed(params["embed"], batch["tokens"])
+    h = shard(L.embed(params["embed"], batch["tokens"]), "batch", "seq",
+              "act_embed")
     blocks, tail = _mamba_layers(params)
 
     def mamba(lp, h, states):
@@ -203,8 +209,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
         x = L.rmsnorm(sp["attn_norm"], h, cfg.norm_eps)
         q, k, v = L.qkv_project(sp["attn"], cfg, x, positions)
         ck, cv = cache["k"][i], cache["v"][i]           # (b, S, kh, hd)
-        ck[:, pos] = k[:, 0]
-        cv[:, pos] = v[:, 0]
+        write_position(ck, pos, k[:, 0])
+        write_position(cv, pos, v[:, 0])
         attn = decode_attention(q, ck, cv, cache_len)
         h = h + L.attn_out_project(sp["attn"], attn)
         x = L.rmsnorm(sp["mlp_norm"], h, cfg.norm_eps)

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from repro_torch.models.params import (
     EMBED, HEADS, HEAD_DIM, KV_HEADS, MLP, VOCAB, ParamDef,
 )
+from repro_torch.sharding.logical import dtensor_mesh, on_shards, shard
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -93,6 +94,7 @@ def swiglu_def(d_model: int, d_ff: int) -> dict:
 
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = shard(h, "batch", "seq", "act_mlp")
     return h @ p["w_down"]
 
 
@@ -109,6 +111,7 @@ def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default is the tanh approximation; ``F.gelu``'s
     is erf, so the form is named."""
     h = F.gelu(matmul(x, p["w_up"]) + p["b_up"], approximate="tanh")
+    h = shard(h, "batch", "seq", "act_mlp")
     return matmul(h, p["w_down"]) + p["b_down"]
 
 
@@ -118,11 +121,19 @@ def embedding_def(vocab: int, d_model: int) -> dict:
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The table's rows at ``tokens``; on DTensors, on each rank's batch
+    shard of the tokens with the table gathered whole (its gradient then a
+    sum over the batch shards), not by DTensor's index strategies, which
+    differ from one torch release to the next."""
+    if dtensor_mesh(tokens) is not None or dtensor_mesh(p["table"]) \
+            is not None:
+        return on_shards(lambda t, table: table[t], (tokens, p["table"]),
+                         ({"b": 0}, {}), ({"b": 0},))
     return p["table"][tokens]
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["table"].T
+    return shard(x @ p["table"].T, "batch", "seq", "act_vocab")
 
 
 # --------------------------------------------------- attention projections
@@ -145,7 +156,13 @@ def attention_proj_def(cfg) -> dict:
 
 
 def head_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matrix product."""
+    """einsum("bsd,dhk->bshk") as one matrix product.  On DTensors, on
+    each rank's batch shard with ``w`` gathered whole (its gradient then a
+    sum over the batch shards): DTensor may shard the product's ``h * k``
+    columns over more devices than there are heads, and then cannot
+    unflatten them."""
+    if dtensor_mesh(x) is not None:
+        return on_shards(head_project, (x, w), ({"b": 0}, {}), ({"b": 0},))
     d, h, k = w.shape
     return matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
@@ -165,10 +182,26 @@ def qkv_project(p: dict, cfg, x: torch.Tensor,
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "act_heads", None)
+    k = shard(k, "batch", "seq", "act_kv_heads", None)
+    v = shard(v, "batch", "seq", "act_kv_heads", None)
     return q, k, v
 
 
 def attn_out_project(p: dict, attn: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") as one matrix product."""
-    h, k, d = p["wo"].shape
-    return matmul(attn.flatten(-2), p["wo"].reshape(h * k, d))
+    """einsum("bshk,hkd->bsd") as one matrix product.  On DTensors, on
+    each rank's batch and heads with ``wo``'s rows of those heads gathered
+    whole, the product a sum over the heads' shards: DTensor's gradient of
+    the flattened heads may be split over more devices than there are
+    heads, and then cannot be unflattened."""
+    if dtensor_mesh(attn) is not None:
+        return on_shards(_attn_out, (attn, p["wo"]),
+                         ({"b": 0, "h": 2}, {"h": 0}),
+                         ({"b": 0, "sum": ("h",)},))
+    return _attn_out(attn, p["wo"])
+
+
+def _attn_out(attn: torch.Tensor, wo: torch.Tensor
+                           ) -> torch.Tensor:
+    h, k, d = wo.shape
+    return matmul(attn.flatten(-2), wo.reshape(h * k, d))

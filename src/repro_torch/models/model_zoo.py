@@ -12,7 +12,8 @@ builds as transformers (``models.transformer``); the Mamba2 hybrid
 the ssm family, RWKV6 (``models.rwkv_model``).  ``build_meta_model``,
 ``input_specs`` and ``batch_logical_axes`` give the dry-run
 (``launch.dryrun``) a model and a batch of meta tensors, the port's
-counterpart of the reference's ``ShapeDtypeStruct`` stand-ins.
+counterpart of the reference's ``ShapeDtypeStruct`` stand-ins;
+``distribute_model`` makes a model's leaves DTensors for a sharded step.
 """
 from __future__ import annotations
 
@@ -22,6 +23,9 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import params as pdefs
 from repro_torch.models import encdec, hybrid, rwkv_model, transformer
+from repro_torch.sharding.logical import (
+    TRAIN_RULES, ShardingRules, distribute,
+)
 
 # family -> the module of its forward / prefill / decode_step / init_cache,
 # and its ParamDef tree
@@ -87,6 +91,22 @@ class Model(ParamTree):
     def cache_axes(self) -> dict:
         """The logical axes of ``init_cache``'s tree, leaf by leaf."""
         return self._mod.cache_logical_axes(self.cfg)
+
+
+def distribute_model(model: Model, mesh, mapping=None) -> ShardingRules:
+    """Make every leaf of ``model`` a DTensor on ``mesh`` (a DeviceMesh),
+    placed by the spec ``mapping`` (``TRAIN_RULES`` by default) gives its
+    logical axes, as ``sharding.param_shardings`` resolves them.  Returns
+    the rules, with the fallbacks they recorded."""
+    rules = ShardingRules(mesh, TRAIN_RULES if mapping is None else mapping)
+    specs = dict(pdefs.tree_leaves(pdefs.logical_specs(model_defs(model.cfg))))
+    for name, p in pdefs.tree_leaves(model.tree()):
+        owner, _, leaf = name.rpartition(".")
+        spec = rules.spec(specs[name], tuple(p.shape))
+        setattr(model.get_submodule(owner), leaf, nn.Parameter(
+            distribute(p.detach(), spec, mesh),
+            requires_grad=p.requires_grad))
+    return rules
 
 
 def _family(cfg: ModelConfig) -> tuple:

@@ -27,6 +27,8 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from repro_torch.sharding.logical import current_rules, rules_in, sharded
+
 POLICIES = ("none", "layer", "dots_saveable")
 
 _DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -64,5 +66,13 @@ def remat(fn, policy: str):
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, **kw)
+        rules = current_rules()
+
+        def body(*args):
+            # the recompute runs on autograd's thread, outside the caller's
+            # context: the sharding rules and a sharded step's context are
+            # entered again there
+            with rules_in(rules), sharded(args):
+                return fn(*args)
+        return checkpoint(body, *args, **kw)
     return run

@@ -25,6 +25,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import wkv6_chunked  # noqa: F401  (JAX name)
 from repro_torch.models.layers import layernorm, layernorm_def
 from repro_torch.models.params import EMBED, LORA, MLP, RWKV_HEADS, ParamDef
+from repro_torch.sharding.logical import dtensor_mesh, shard
 
 _MIX_TARGETS = ("r", "k", "v", "w", "g")
 
@@ -78,6 +79,19 @@ def _ddlerp(p, t: str, x, xs, base_mix):
     return x + (xs - x) * (mu + lora)
 
 
+def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    """(..., h * dk) -> (..., h, dk).  A DTensor whose last dim is split
+    (DTensor may split a product's columns over more devices than there
+    are heads: rwkv6-3b's 40 over 16) is made whole on it first."""
+    mesh = dtensor_mesh(t)
+    if mesh is not None:
+        from torch.distributed.tensor import Replicate
+        last = t.ndim - 1
+        t = t.redistribute(mesh, [Replicate() if p.is_shard(last) else p
+                                  for p in t.placements])
+    return t.unflatten(-1, (h, -1))
+
+
 def _per_head_ln(p, x, eps):
     """x: (b, s, h, dk), GroupNorm(heads) equivalent; returns float32."""
     xf = x.float()
@@ -89,19 +103,17 @@ def _per_head_ln(p, x, eps):
 def _project(p, cfg, x, x_shift):
     """Shared r/k/v/w/g projection.  Returns float32 tensors: r, k, v, loga
     (b, s, h, dk) and g (b, s, d)."""
-    b, s, d = x.shape
-    dk = cfg.rwkv_head_dim
-    h = d // dk
+    h = x.shape[-1] // cfg.rwkv_head_dim
     base_mix = x + (x_shift - x) * p["mu_base"].to(x.dtype)
     xr, xk, xv, xw, xg = (_ddlerp(p, t, x, x_shift, base_mix)
                           for t in _MIX_TARGETS)
-    r = (xr @ p["w_r"]).reshape(b, s, h, dk).float()
-    k = (xk @ p["w_k"]).reshape(b, s, h, dk).float()
-    v = (xv @ p["w_v"]).reshape(b, s, h, dk).float()
+    r = _heads(xr @ p["w_r"], h).float()
+    k = _heads(xk @ p["w_k"], h).float()
+    v = _heads(xv @ p["w_v"], h).float()
     g = F.silu((xg @ p["w_g"]).float())
     w_raw = p["w0"].float() \
         + (torch.tanh(xw @ p["loraA_w"]) @ p["loraB_w"]).float()
-    loga = -torch.exp(w_raw).reshape(b, s, h, dk)       # log decay, <= 0
+    loga = -torch.exp(_heads(w_raw, h))                 # log decay, <= 0
     return r, k, v, g, loga
 
 
@@ -120,8 +132,9 @@ def rwkv6_timemix_train(p, cfg, x, segment_ids, return_state: bool = False):
                  return_state=return_state)
     if return_state:
         o, S_final = o
-    o = _per_head_ln(p["out_ln"], o, cfg.norm_eps) * g.reshape(b, s, h, -1)
-    out = o.to(x.dtype).reshape(b, s, d) @ p["w_o"]
+    o = _per_head_ln(p["out_ln"], o, cfg.norm_eps) * _heads(g, h)
+    o = shard(o.to(x.dtype), "batch", "seq", "act_heads", None)
+    out = o.reshape(b, s, d) @ p["w_o"]
     if return_state:
         # the row's last position, padding or not, as in JAX
         return out, {"tm_shift": xn[:, -1:], "wkv": S_final}
@@ -134,6 +147,7 @@ def rwkv6_channelmix_train(p, cfg, x):
     xk = xn + (xs - xn) * p["mu_k"].to(xn.dtype)
     xr = xn + (xs - xn) * p["mu_r"].to(xn.dtype)
     kk = torch.square(F.relu(xk @ p["w_k"]))
+    kk = shard(kk, "batch", "seq", "act_mlp")
     return torch.sigmoid(xr @ p["w_r"]) * (kk @ p["w_v"])
 
 
@@ -152,7 +166,7 @@ def rwkv6_timemix_decode(p, cfg, x, state):
     o = torch.einsum("bhi,bhij->bhj", r1, S + u[None, :, :, None] * kv)
     S_new = S * torch.exp(loga[:, 0])[..., None] + kv
     o = _per_head_ln(p["out_ln"], o[:, None], cfg.norm_eps)[:, 0] \
-        * g.reshape(b, 1, h, -1)[:, 0]
+        * _heads(g, h)[:, 0]
     out = o.reshape(b, d)[:, None, :].to(x.dtype) @ p["w_o"]
     return out, {"tm_shift": xn, "wkv": S_new}
 

@@ -16,6 +16,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import rwkv
 from repro_torch.models.params import EMBED, VOCAB, ParamDef, stacked, tree_map
 from repro_torch.models.remat import remat, whole_layer
+from repro_torch.sharding.logical import shard
 
 
 def rwkv_defs(cfg: ModelConfig) -> dict:
@@ -53,11 +54,13 @@ def forward(params, cfg: ModelConfig, batch, return_state: bool = False):
     seg = batch["segment_ids"]
     h = L.embed(params["embed"], batch["tokens"])
     h = L.layernorm(params["ln0"], h, cfg.norm_eps)
+    h = shard(h, "batch", "seq", "act_embed")
     states = []
 
     def layer_fn(h, lp):
         h = h + rwkv.rwkv6_timemix_train(lp["tm"], cfg, h, seg)
-        return h + rwkv.rwkv6_channelmix_train(lp["cm"], cfg, h)
+        h = h + rwkv.rwkv6_channelmix_train(lp["cm"], cfg, h)
+        return shard(h, "batch", "seq", "act_embed")
 
     body = remat(layer_fn, whole_layer(cfg.remat))
     for i in range(cfg.num_layers):
@@ -73,7 +76,7 @@ def forward(params, cfg: ModelConfig, batch, return_state: bool = False):
             states.append(st)
         else:
             h = body(h, lp)
-    logits = _head(params, cfg, h)
+    logits = shard(_head(params, cfg, h), "batch", "seq", "act_vocab")
     if return_state:
         return logits, {n: torch.stack([st[n] for st in states])
                         for n in ("tm_shift", "cm_shift", "wkv")}

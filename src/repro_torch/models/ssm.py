@@ -28,9 +28,12 @@ also rematerialises each chunk of the scan in the backward pass
 instead covers the scan's memory at the hybrid's block granularity: under
 ``cfg.remat`` other than ``"none"``, ``models.hybrid.forward`` keeps only
 each block's input and recomputes its layers, the scan included, in the
-backward.
+backward.  On DTensors the scan (``_ssd_scan``, independent per batch row
+and head) runs on each rank's shards, as a kernel would.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 from repro_torch.models import layers as L
 from repro_torch.models.params import CONV, EMBED, ParamDef, SSM_INNER, \
     SSM_STATE
+from repro_torch.sharding.logical import dtensor_mesh, on_shards, shard
 
 CONV_K = 4  # depthwise conv kernel width
 
@@ -85,30 +89,14 @@ def _project(p, cfg, x):
     return z, xs, B, C, dt, loga
 
 
-def mamba2_train(p: dict, cfg, x: torch.Tensor, segment_ids: torch.Tensor,
-                 return_state: bool = False):
-    """x: (b, s, d_model); segment_ids: (b, s).  Returns (b, s, d_model),
-    and with ``return_state`` also the final {ssm, conv} state (prefill)."""
-    b, s, d = x.shape
-    d_in = cfg.ssm_expand * d
-    H = d_in // cfg.ssm_head_dim
-    P = cfg.ssm_head_dim
-    N = cfg.ssm_state
-    Lc = min(cfg.ssm_chunk, s)
-    if s % Lc:
-        raise ValueError(f"sequence {s} is not a multiple of the SSM chunk "
-                         f"{Lc}")
-    nc = s // Lc
-
-    prev_seg = F.pad(segment_ids[:, :-1], (1, 0))
-    seg_reset = (segment_ids != prev_seg) | (segment_ids == 0)
-
-    z, xs, Bv, Cv, dt, loga = _project(p, cfg, x)
-    xs_raw = xs                                    # pre-conv stream (prefill)
-    xs = _causal_depthwise_conv(xs, p["conv"])
-    xh = xs.reshape(b, s, H, P).float()
-    dtx = xh * dt[..., None]                       # (b, s, H, P)
-
+def _ssd_scan(dtx, Bv, Cv, loga, seg_reset, chunk: int):
+    """The chunked SSD scan, in float32, independent per batch row and
+    head.  dtx: (b, s, H, P); Bv, Cv: (b, s, N); loga: (b, s, H);
+    seg_reset: (b, s) bool.  Returns y (b, s, H, P) without the D skip, and
+    the final state (b, H, P, N)."""
+    b, s, H, P = dtx.shape
+    N = Bv.shape[-1]
+    Lc, nc = chunk, s // chunk
     # chunked SSD scan, chunks as dim 1.  Segment resets are tracked as
     # COUNTS (never folded into the fp32 decay cumsum: catastrophic
     # cancellation; see models/rwkv.py).
@@ -118,7 +106,7 @@ def mamba2_train(p: dict, cfg, x: torch.Tensor, segment_ids: torch.Tensor,
     R = torch.cumsum(seg_reset.to(torch.int32).reshape(b, nc, Lc),
                      dim=2)                         # resets up to & incl t
     tri = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool,
-                                device=x.device))
+                                device=dtx.device))
     # intra-chunk: M[l,m,h] = (C_l . B_m) * exp(cla_l - cla_m), valid iff
     # l >= m and no reset in (m, l]  <=>  R_l == R_m
     scores = torch.einsum("bcln,bcmn->bclm", Cc, Bc)
@@ -133,7 +121,7 @@ def mamba2_train(p: dict, cfg, x: torch.Tensor, segment_ids: torch.Tensor,
     kw = xc * (torch.exp(cla[:, :, -1:, :] - cla) * k_gate)[..., None]
     kv = torch.einsum("bcmhp,bcmn->bchpn", kw, Bc)
     keep = torch.exp(cla[:, :, -1]) * (R[:, :, -1] == 0)[..., None]
-    S = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+    S = torch.zeros((b, H, P, N), dtype=torch.float32, device=dtx.device)
     entering = []
     for c in range(nc):
         entering.append(S)
@@ -143,11 +131,45 @@ def mamba2_train(p: dict, cfg, x: torch.Tensor, segment_ids: torch.Tensor,
     carry_gate = (R == 0)[..., None]                       # (b,c,l,1)
     y = y + torch.einsum("bcln,bchpn->bclhp", Cc, torch.stack(entering, 1)) \
         * (torch.exp(cla) * carry_gate)[..., None]
-    y = y.reshape(b, s, H, P)
+    return y.reshape(b, s, H, P), S
+
+
+def mamba2_train(p: dict, cfg, x: torch.Tensor, segment_ids: torch.Tensor,
+                 return_state: bool = False):
+    """x: (b, s, d_model); segment_ids: (b, s).  Returns (b, s, d_model),
+    and with ``return_state`` also the final {ssm, conv} state (prefill)."""
+    b, s, d = x.shape
+    d_in = cfg.ssm_expand * d
+    H = d_in // cfg.ssm_head_dim
+    P = cfg.ssm_head_dim
+    Lc = min(cfg.ssm_chunk, s)
+    if s % Lc:
+        raise ValueError(f"sequence {s} is not a multiple of the SSM chunk "
+                         f"{Lc}")
+
+    prev_seg = F.pad(segment_ids[:, :-1], (1, 0))
+    seg_reset = (segment_ids != prev_seg) | (segment_ids == 0)
+
+    z, xs, Bv, Cv, dt, loga = _project(p, cfg, x)
+    xs_raw = xs                                    # pre-conv stream (prefill)
+    xs = _causal_depthwise_conv(xs, p["conv"])
+    xs = shard(xs, "batch", "seq", "act_ssm")
+    xh = xs.reshape(b, s, H, P).float()
+    dtx = xh * dt[..., None]                       # (b, s, H, P)
+
+    if dtensor_mesh(dtx) is None:
+        y, S = _ssd_scan(dtx, Bv, Cv, loga, seg_reset, Lc)
+    else:   # per batch row and head on each rank's shards, as a kernel
+        bh = {"b": 0, "h": 2}
+        y, S = on_shards(functools.partial(_ssd_scan, chunk=Lc),
+                         (dtx, Bv, Cv, loga, seg_reset),
+                         (bh, {"b": 0}, {"b": 0}, bh, {"b": 0}),
+                         (bh, {"b": 0, "h": 1}))
     y = y + xh * p["D"].float()[None, None, :, None]
     y = y.reshape(b, s, d_in)
     y = L.rmsnorm(p["norm"], y * F.silu(z.float()), cfg.norm_eps)
-    out = y.to(x.dtype) @ p["w_out"]
+    y = shard(y.to(x.dtype), "batch", "seq", "act_ssm")
+    out = y @ p["w_out"]
     if return_state:
         state = {"ssm": S, "conv": xs_raw[:, -(CONV_K - 1):].float()}
         return out, state

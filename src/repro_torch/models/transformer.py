@@ -21,9 +21,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.attention import decode_attention, segment_attention
+from repro_torch.models.attention import (
+    decode_attention, segment_attention, write_position,
+)
 from repro_torch.models.params import EMBED, VOCAB, ParamDef, stacked, tree_map
 from repro_torch.models.remat import remat
+from repro_torch.sharding.logical import batch_local, dtensor_mesh, shard
 
 
 # ------------------------------------------------------------------- defs
@@ -62,6 +65,7 @@ def _attn_block(lp, cfg, h, segment_ids, positions):
     x = L.rmsnorm(lp["attn_norm"], h, cfg.norm_eps)
     q, k, v = L.qkv_project(lp["attn"], cfg, x, positions)
     attn = segment_attention(q, k, v, segment_ids, segment_ids, causal=True)
+    attn = shard(attn, "batch", "seq", "act_heads", None)
     return L.attn_out_project(lp["attn"], attn), k, v
 
 
@@ -73,22 +77,29 @@ def _ffn_block(lp, cfg, h):
     return L.swiglu(lp["mlp"], x), None
 
 
+def _put_images(h, positions, embeds):
+    bi = torch.arange(h.shape[0], device=h.device)[:, None]
+    return h.index_put((bi, positions.long()), embeds.to(h.dtype))
+
+
 def _embed_inputs(params, cfg, batch):
     """Token embeddings, with a vlm batch's ``image_embeds`` (b, n, d)
-    written over them at ``image_positions`` (b, n), cast to their dtype."""
+    written over them at ``image_positions`` (b, n), cast to their dtype;
+    on DTensors, row by row on each rank's batch shard."""
     h = L.embed(params["embed"], batch["tokens"])
     if cfg.family == "vlm" and "image_embeds" in batch:
-        bi = torch.arange(h.shape[0], device=h.device)[:, None]
-        h = h.index_put((bi, batch["image_positions"].long()),
-                        batch["image_embeds"].to(h.dtype))
-    return h
+        args = (h, batch["image_positions"], batch["image_embeds"])
+        mesh = dtensor_mesh(h)
+        h = _put_images(*args) if mesh is None else \
+            batch_local(_put_images, args, mesh)
+    return shard(h, "batch", "seq", "act_embed")
 
 
 def _unembed(params, cfg, h):
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if cfg.tied_embeddings:
         return L.unembed(params["embed"], h)
-    return h @ params["unembed"]
+    return shard(h @ params["unembed"], "batch", "seq", "act_vocab")
 
 
 # ------------------------------------------------------------------ train
@@ -106,7 +117,8 @@ def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
     def layer_fn(h, aux, lp):
         h = h + _attn_block(lp, cfg, h, seg, pos)[0]
         ffn, a = _ffn_block(lp, cfg, h)
-        return h + ffn, aux if a is None else aux + a
+        h = shard(h + ffn, "batch", "seq", "act_embed")
+        return h, aux if a is None else aux + a
 
     body = remat(layer_fn, cfg.remat)
     for i in range(cfg.num_layers):
@@ -133,18 +145,16 @@ def prefill(params, cfg: ModelConfig, batch):
     h = _embed_inputs(params, cfg, batch)
     seg = batch["segment_ids"]
     pos = batch["positions"]
-    kv = None
+    ks, vs = [], []
     for i in range(cfg.num_layers):
         lp = _layer(params, i)
         attn, k, v = _attn_block(lp, cfg, h, seg, pos)
-        if kv is None:
-            kv = {n: torch.empty((cfg.num_layers,) + t.shape, dtype=t.dtype,
-                                 device=t.device)
-                  for n, t in (("k", k), ("v", v))}
-        kv["k"][i] = k
-        kv["v"][i] = v
+        ks.append(k)
+        vs.append(v)
         h = h + attn
-        h = h + _ffn_block(lp, cfg, h)[0]
+        h = shard(h + _ffn_block(lp, cfg, h)[0], "batch", "seq", "act_embed")
+    kv = {n: shard(torch.stack(t), "layers", "batch", "kv_seq",
+                   "act_kv_heads", None) for n, t in (("k", ks), ("v", vs))}
     return _unembed(params, cfg, h[:, -1:, :]), kv
 
 
@@ -161,7 +171,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
     if not 0 <= pos < S:
         raise IndexError(f"decode position {pos} outside cache of {S}")
     b = tokens.shape[0]
-    h = L.embed(params["embed"], tokens)
+    h = shard(L.embed(params["embed"], tokens), "batch", "seq", "act_embed")
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=h.device)
     cache_len = torch.full((b,), pos + 1, dtype=torch.int32, device=h.device)
     for i in range(cfg.num_layers):
@@ -169,8 +179,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
         x = L.rmsnorm(lp["attn_norm"], h, cfg.norm_eps)
         q, k, v = L.qkv_project(lp["attn"], cfg, x, positions)
         ck, cv = cache["k"][i], cache["v"][i]           # (b, S, kh, hd)
-        ck[:, pos] = k[:, 0]                            # casts to the cache's
-        cv[:, pos] = v[:, 0]                            # dtype, as astype does
+        write_position(ck, pos, k[:, 0])                # casts to the cache's
+        write_position(cv, pos, v[:, 0])                # dtype, as astype does
         attn = decode_attention(q, ck, cv, cache_len)
         h = h + L.attn_out_project(lp["attn"], attn)
         h = h + _ffn_block(lp, cfg, h)[0]

@@ -51,13 +51,15 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_adamw(params: dict) -> AdamWState:
+    """Zero moments like each param (a DTensor param's are DTensors of its
+    placements) and a step count on the params' device."""
     device = next(leaf for _, leaf in tree_leaves(params)).device
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=device),
-        mu=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params),
-        nu=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params))
+        mu=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params),
+        nu=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params))
 
 
 def global_norm(tree: dict) -> torch.Tensor:

@@ -6,15 +6,25 @@ rank > 1 on each step, by a differentiable cast, so the gradients land
 float32 on the master leaves, as in the reference's ``loss_fn``.  Serving
 casts the leaves themselves, once and in place (``_cast_for_compute``),
 which a trainer must never do.
+
+Every step also runs on a model and batch of DTensors (a sharded step):
+the leaves placed by ``sharding.logical.param_shardings``' specs
+(``model_zoo.distribute_model``), the moments like their params, the
+batch by ``model_zoo.batch_logical_axes``, under ``sharding.use_rules`` on
+the same ``DeviceMesh``.  The step then runs in ``sharding.sharded``'s
+context, and the models' ``shard`` constraints redistribute the
+activations.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.sharding.logical import dtensor_mesh, placed_like, sharded
 from repro_torch.train.optimizer import (
     AdamWConfig, AdamWState, adamw_update, init_adamw,
 )
@@ -48,16 +58,73 @@ def _compute_copy(params: dict) -> dict:
                     params)
 
 
+def _vocab_local(fn, logits, *rest, reduce_op: str):
+    """``fn(local logits, *rest)`` on each rank's vocab shard of DTensor
+    ``logits`` (last dim) through ``local_map``.  ``fn`` gets the global
+    index of its first vocab entry; ``rest`` (the logits' shape without
+    the vocab) and the output are placed like the logits elsewhere, and the
+    output is a ``Partial(reduce_op)`` over the vocab's mesh dims."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+    from torch.distributed.tensor.experimental import local_map
+    vdim = logits.ndim - 1
+    mesh = logits.device_mesh
+    keep = tuple(p if p.is_shard() and p.dim != vdim else Replicate()
+                 for p in logits.placements)
+    out = tuple(Partial(reduce_op) if p.is_shard() and p.dim == vdim else q
+                for p, q in zip(logits.placements, keep))
+    _, first = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)
+    return local_map(functools.partial(fn, first[vdim]),
+                     out_placements=(out,),
+                     in_placements=(logits.placements,) + (keep,) * len(rest),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        logits, *rest)
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]`` (labels clamped at 0).  On DTensor logits
+    each vocab shard picks the labels in its range (DTensor's own gather
+    over a sharded vocab fails), a ``Partial`` sum of one non-zero term."""
+    idx = torch.clamp(labels, min=0).long()
+    if dtensor_mesh(logits) is None:
+        return torch.gather(logits, -1, idx[..., None])[..., 0]
+
+    def pick(first, lg, ix):
+        ix = ix - first
+        inside = (ix >= 0) & (ix < lg.shape[-1])
+        g = torch.gather(lg, -1, torch.where(inside, ix, 0)[..., None])
+        return torch.where(inside, g[..., 0], 0.0)
+    return _vocab_local(pick, logits, idx, reduce_op="sum")
+
+
+def _argmax(logits: torch.Tensor) -> torch.Tensor:
+    """``argmax`` over the last dim, the first index of the maximum.  On
+    DTensor logits, the maximum (a reduction DTensor places), then each
+    vocab shard's first index that reaches it, a ``Partial`` min
+    (DTensor's own argmax over a sharded vocab fails on gloo)."""
+    if dtensor_mesh(logits) is None:
+        return torch.argmax(logits, -1)
+    top = torch.amax(logits, -1)
+
+    def first_max(first, lg, m):
+        idx = torch.arange(lg.shape[-1], device=lg.device) + first
+        at = torch.where(lg == m[..., None], idx, torch.iinfo(idx.dtype).max)
+        return torch.amin(at, -1)
+    return _vocab_local(first_max, logits, top, reduce_op="min")
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Mean masked token xent (fp32) + accuracy."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, torch.clamp(labels, min=0).long()[
-        ..., None])[..., 0]
+    gold = _gold(logits, labels)
     nll = (logz - gold) * mask
     denom = torch.clamp(torch.sum(mask), min=1.0)
-    acc = torch.sum((torch.argmax(logits, -1) == labels) * mask) / denom
+    acc = torch.sum((_argmax(logits) == labels) * mask) / denom
     return torch.sum(nll) / denom, acc
 
 
@@ -68,13 +135,14 @@ def make_loss_fn(model: Model):
     whatever else the model reads (an audio model's ``enc_embeds``), passed
     through whole."""
     def loss_fn(params, batch):
-        logits, aux = model.forward(batch, _compute_copy(params))
-        labels = batch["labels"]
-        mask = ((labels >= 0) & (batch["segment_ids"] > 0)).float()
-        loss, acc = cross_entropy(logits, labels, mask)
-        total = loss + AUX_LOSS_WEIGHT * aux
-        return total, {"loss": loss, "aux_loss": aux, "accuracy": acc,
-                       "tokens": torch.sum(mask)}
+        with sharded(params):
+            logits, aux = model.forward(batch, _compute_copy(params))
+            labels = batch["labels"]
+            mask = ((labels >= 0) & (batch["segment_ids"] > 0)).float()
+            loss, acc = cross_entropy(logits, labels, mask)
+            total = loss + AUX_LOSS_WEIGHT * aux
+            return total, {"loss": loss, "aux_loss": aux, "accuracy": acc,
+                           "tokens": torch.sum(mask)}
     return loss_fn
 
 
@@ -85,12 +153,13 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig = AdamWConfig()):
     loss_fn = make_loss_fn(model)
 
     def train_step(state: TrainState, batch):
-        total, metrics = loss_fn(state.params, batch)
-        total.backward()
-        grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
-                         else p.grad, state.params)
-        params, opt, opt_metrics = adamw_update(opt_cfg, grads, state.opt,
-                                                state.params)
+        with sharded(state.params):
+            total, metrics = loss_fn(state.params, batch)
+            total.backward()
+            grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
+                             else placed_like(p.grad, p), state.params)
+            params, opt, opt_metrics = adamw_update(opt_cfg, grads,
+                                                    state.opt, state.params)
         for _, p in tree_leaves(params):
             p.grad = None
         metrics = dict(metrics, total_loss=total, **opt_metrics)
@@ -112,9 +181,15 @@ def _cast_for_compute(model: Model) -> Model:
     being made per call.  The cast is deterministic, so the numbers are
     the same.
     """
-    for p in model.parameters():
-        if p.dtype == torch.float32 and p.dim() > 1:
+    for name, p in list(model.named_parameters()):
+        if p.dtype != torch.float32 or p.dim() <= 1:
+            continue
+        if dtensor_mesh(p) is None:
             p.data = p.data.to(COMPUTE_DTYPE)
+        else:   # a DTensor's .data takes the dtype but keeps its shards'
+            owner, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(owner), leaf, torch.nn.Parameter(
+                p.detach().to(COMPUTE_DTYPE), requires_grad=False))
     return model
 
 
@@ -124,7 +199,8 @@ def make_prefill_step(model: Model):
 
     @torch.no_grad()
     def prefill_step(batch):
-        return model.prefill(batch)
+        with sharded(model.tree()):
+            return model.prefill(batch)
     return prefill_step
 
 
@@ -135,5 +211,6 @@ def make_decode_step(model: Model):
 
     @torch.no_grad()
     def decode_step(cache, tokens, pos: int):
-        return model.decode_step(cache, tokens, pos)
+        with sharded(model.tree()):
+            return model.decode_step(cache, tokens, pos)
     return decode_step

@@ -9,6 +9,10 @@ and the fallbacks its rules recorded, without compiling.  The port's
 records (no meta pass) must equal them: bytes exactly, FLOPs to 1e-12.
 Its meta pass must count the FLOPs that ``FlopCounterMode`` counts of the
 same step on real CPU tensors, for the reduced config of each family.
+
+Its sharded pass (``launch.collectives``) counts no collective on the 1 x 1
+mesh, uses the reference's ring formulas, and counts a hand-reckoned cell
+exactly (``test_hand_reckoned_prefill_cell``).
 """
 import importlib
 import json
@@ -23,8 +27,10 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import SHAPES, ShapeConfig, assigned_archs
 from repro_torch.kernels import meta, ops, ref
-from repro_torch.launch import dryrun
+from repro_torch.launch import collectives, dryrun
+from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import model_zoo
+from repro_torch.sharding import logical
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CELLS = [(a, s, m) for a in assigned_archs() for s in SHAPES
@@ -32,10 +38,12 @@ CELLS = [(a, s, m) for a in assigned_archs() for s in SHAPES
 FAMILIES = {"dense": "qwen3_8b", "moe": "qwen3_moe_30b_a3b",
             "vlm": "pixtral_12b", "hybrid": "zamba2_7b",
             "audio": "whisper_medium", "ssm": "rwkv6_3b"}
+COLLECTIVE_KEYS = {"collective_counts", "collective_result_bytes",
+                   "collective_wire_bytes"}
 RECORD_KEYS = {"arch", "shape", "mesh", "status", "params",
                "persistent_bytes_per_device", "model_flops",
                "dropped_shardings", "trace_s", "op_flops", "op_bytes",
-               "op_count"}
+               "op_count"} | COLLECTIVE_KEYS
 
 _JAX_CELLS = r"""
 import functools, json
@@ -228,11 +236,20 @@ def test_cli_writes_records_with_the_keys(tmp_path):
                  "local", "--out", str(tmp_path)])
     dryrun.main(["--arch", "qwen3-8b", "--shape", "long_500k", "--mesh",
                  "both", "--no-ops", "--out", str(tmp_path)])
+    dryrun.main(["--arch", "qwen3-8b", "--shape", "decode_32k", "--mesh",
+                 "single", "--no-ops", "--out", str(tmp_path)])
     rec = json.loads((tmp_path / "qwen3-8b__decode_32k__local.json")
                      .read_text())
     assert set(rec) == RECORD_KEYS and rec["status"] == "ok"
     assert rec["op_flops"] > rec["model_flops"] > 0 and rec["op_count"] > 0
     assert rec["dropped_shardings"] == []
+    for key in COLLECTIVE_KEYS:          # nothing moves on one device
+        assert set(rec[key]) == set(collectives.KINDS)
+        assert not any(rec[key].values())
+    no_ops = json.loads((tmp_path / "qwen3-8b__decode_32k__single.json")
+                        .read_text())
+    assert set(no_ops) == RECORD_KEYS and no_ops["status"] == "ok"
+    assert all(no_ops[key] is None for key in COLLECTIVE_KEYS)
     for mesh in ("single", "multi"):
         skip = json.loads((tmp_path / f"qwen3-8b__long_500k__{mesh}.json")
                           .read_text())
@@ -254,3 +271,83 @@ def test_import_sets_nothing_and_touches_no_device():
                                    PYTHONPATH=str(ROOT / "src")),
                           capture_output=True, text=True, timeout=120)
     assert proc.stdout.strip() == "ok", proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_local_mesh_issues_no_collective(family):
+    cfg = importlib.import_module(
+        f"repro_torch.configs.{FAMILIES[family]}").reduced()
+    rec = dryrun.collective_pass(cfg, ShapeConfig("t", "train", 64, 2),
+                                 "local")
+    assert set(rec["collective_counts"]) == set(collectives.KINDS)
+    assert not any(v for key in COLLECTIVE_KEYS for v in rec[key].values())
+
+
+def test_wire_formulas_equal_the_reference():
+    from repro.launch.hlo_cost import _collective_wire
+    for kind in collectives.KINDS:
+        for rb in (0, 1, 4096, 3 * 2**30 + 7):
+            for n in (1, 2, 3, 16, 256, 512):
+                assert collectives.wire_bytes(kind, rb, n) == \
+                    _collective_wire(kind, rb, n), (kind, rb, n)
+
+
+def test_hand_reckoned_prefill_cell():
+    """Reduced qwen3-8b (2 layers, d 64, 4 heads and 2 KV heads of 16,
+    d_ff 128, vocab 256), prefill of 4 x 64 tokens, on a (2, 1) ("data",
+    "model") mesh.  Under ``TRAIN_RULES`` only ``embed`` and ``batch``
+    reach a mesh axis of more than one device: every weight with an
+    ``embed`` dim is split over the 2 data devices, the batch too.  The
+    serve cast makes the weights bf16 (2 bytes).
+
+    - Each of a layer's seven products gathers its weight whole, once:
+      wq 64 x 64, wk and wv 64 x 32, wo 64 x 64, w_gate and w_up 64 x 128,
+      w_down 128 x 64: 36,864 elements, 73,728 bytes, 147,456 for the two
+      layers.  The head product ``layers.head_project`` gathers by design
+      (its batch shard times the whole weight); DTensor chooses the same
+      for the other four.
+    - The embedding lookup (``layers.embed``) takes each batch shard's
+      rows from the whole table, gathered: 256 x 64, 32,768 bytes.
+    - The last position's logits gather the unembedding, 64 x 256,
+      32,768 bytes.
+    So 2 x 7 + 2 = 16 all-gathers of 147,456 + 32,768 + 32,768 = 212,992
+    result bytes, nothing else; each over a group of 2, so the wire is
+    half the result."""
+    from repro_torch.configs.qwen3_8b import reduced
+    rec = dryrun.collective_pass(reduced(), ShapeConfig("p", "prefill", 64, 4),
+                                 MeshShape(("data", "model"), (2, 1)))
+    zero = dict.fromkeys(collectives.KINDS, 0)
+    assert rec["collective_counts"] == dict(zero, **{"all-gather": 16})
+    assert rec["collective_result_bytes"] == dict(zero,
+                                                  **{"all-gather": 212_992})
+    assert rec["collective_wire_bytes"] == dict(zero,
+                                                **{"all-gather": 106_496})
+
+
+def test_expert_transpose_and_the_cuda_all_to_all():
+    """The MoE's expert transpose, ``shard(buf, None, "act_expert", "cap",
+    None)`` from the batch split of the dispatch (``data``), replicates the
+    buffer over ``data`` and splits its experts over ``model``: on DTensor,
+    one all-gather over ``data`` of this device's expert block (GSPMD
+    counts all-to-alls and collective-permutes there; PERF.md).  A
+    ``Shard(0) -> Shard(1)`` move over one mesh dim is one all-to-all, as
+    NCCL runs it, not gloo's all-gather fallback."""
+    b, ep, c, d = 8, 16, 5, 64
+    with collectives.fake_mesh(MeshShape(("data", "model"), (2, 2))) as mesh:
+        with logical.use_rules(mesh) as rules:
+            buf = logical.distribute(
+                torch.empty((b, ep, c, d), dtype=torch.bfloat16,
+                            device="meta"),
+                rules.spec(("batch", None, "cap", None), (b, ep, c, d)), mesh)
+            out, tally = collectives.count(
+                logical.shard, buf, None, "act_expert", "cap", None)
+            assert tuple(out.to_local().shape) == (b, ep // 2, c, d)
+            assert tally.counts == dict.fromkeys(collectives.KINDS, 0) | {
+                "all-gather": 1}
+            assert tally.result_bytes["all-gather"] == b * ep // 2 * c * d * 2
+            from torch.distributed.tensor import Replicate, Shard
+            moved, tally = collectives.count(
+                buf.redistribute, mesh, (Shard(1), Replicate()))
+            assert tally.counts["all-to-all"] == 1 and tally.total == 1
+            assert tuple(moved.to_local().shape) == (b, ep // 2, c, d)
+            assert tally.result_bytes["all-to-all"] == b * ep * c * d
