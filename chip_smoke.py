@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only remat
     python3 chip_smoke.py --only dryrun
     python3 chip_smoke.py --only shard
+    python3 chip_smoke.py --only seqdecode
 
 Phases (any failure raises, and the exit code is not 0):
   1. device  — the card's name, count and power limit; no card, no run.
@@ -116,6 +117,26 @@ Phases (any failure raises, and the exit code is not 0):
                (``launch.collectives.count``): no collective, the launch
                counts equal to the plain run's, every number bitwise equal
                (or within the training checks' tolerances, logged).
+  3d. seqdecode — the KV-sequence-parallel decode's parts on the card (its
+               all-reduces run on 4 gloo CPU ranks in the tests and on meta
+               shards in the dry-run: this machine has one card).
+               flash_decode's partial result (the float32 output and its
+               log-sum-exp) against ``ref.flash_decode_ref(...,
+               return_lse=True)`` at qwen3-8b's serve decode (b 4, 32 heads
+               on 8 of 128, a float32 cache of PROMPT + GEN) and at the
+               per-device block of its decode_32k cell on the 16 x 16 mesh
+               (b 8, 2048 positions, bf16), on the whole cache and on each
+               of 4 pieces along the sequence (local lengths 0 and inside
+               a tile among them), the output without lse bitwise the lse
+               output cast, and the pieces merged by
+               ``ops.merge_partials`` against the whole; then qwen3-8b at
+               full width (the serve run's model): the float32 cache that
+               a real BATCH x PROMPT prefill fills, 4 greedy decode steps,
+               and at every layer of each the 4 pieces' partials merged
+               against the kernel on the whole cache, in float32 before
+               the cast; then the device times of flash_decode with and
+               without lse at both shapes, and the block's byte bound.
+               Runs after the qwen3-8b serve run's traces.
   4. serve   — ``repro_torch.launch.serve`` on qwen3-8b (36 layers, d_model
                4096), on rwkv6-3b (32 layers, d_model 2560) and on the
                paper's VLM backbone paper-llama-12b (45 layers, d_model
@@ -289,6 +310,12 @@ it builds and launches no kernel, so its ``kernels`` line is empty.
 ``--only shard`` is the short loop for the sharded step: phase 1, the
 builds of the three attention kernels and phase 3c; it times nothing, so
 its ``kernels`` line is empty.
+``--only seqdecode`` is the short loop for the KV-sequence-parallel
+decode: phase 1, the builds of packed_attention and flash_decode (the
+qwen3-8b prefill and decode), qwen3-8b drawn at full width and depth as
+the serve run draws it, and phase 3d; its ``kernels`` line is empty.
+``tools/time_in_turns.py decode`` times flash_decode in turns against
+another version of its source.
 ``--only bwd`` is the short loop for the backward kernel: phase 1, the
 builds of packed_attention and packed_attention_bwd, the backward checks,
 and the backward's record at the training shape with the live tile pairs
@@ -339,6 +366,14 @@ CUT_PROMPT = 128
 # TRAIN_BATCH x TRAIN_SEQ; qwen3-8b's prefill of BATCH x PROMPT and
 # SHARD_DECODE_STEPS decode steps
 SHARD_LAYERS, SHARD_MOE_LAYERS, SHARD_DECODE_STEPS = 2, 1, 4
+# the KV-sequence-parallel decode (phase 3d): flash_decode's partial
+# (out, lse) at qwen3-8b's serve decode and at the per-device block of its
+# decode_32k cell on the 16 x 16 mesh (8 of 128 sequences, 2048 of 32,768
+# positions, bf16: b, h, kh, S, d below); the serve cache, filled by a
+# real BATCH x PROMPT prefill, cut into SEQ_PIECES pieces along its
+# sequence and merged, at every layer of SEQ_DECODE_STEPS decode steps
+SEQ_BLOCK = (8, 32, 8, 2048, 128)
+SEQ_PIECES, SEQ_DECODE_STEPS = 4, 4
 RWKV_ARCH = "rwkv6-3b"             # served at the same batch, prompt, gen
 # the training run: qwen3-8b at full width with 8 of its 36 layers (the
 # float32 weights, grads and two moments of 36 layers, ~131 GB, do not fit
@@ -4530,6 +4565,229 @@ def phase_shard():
     log(f"[shard] phase {time.perf_counter() - t0:.1f}s")
 
 
+# -------------------------------------------------------- 3d. seqdecode
+def _pieces(q, k, v, clen, n: int, check=None):
+    """``flash_decode``'s partial on each of ``n`` contiguous pieces of a
+    (b, kh, S, d) cache along S (views, read in place), each piece's
+    cache_len made local; ``check(i, out, lse, k, v, lens)`` sees each."""
+    from repro_torch.kernels import flash_decode
+    step = k.shape[2] // n
+    outs, lses = [], []
+    for i in range(n):
+        sl = slice(i * step, (i + 1) * step)
+        lens = (clen - i * step).clamp(0, step).to(torch.int32)
+        out, lse = _launch(flash_decode, flash_decode.flash_decode, q,
+                           k[:, :, sl], v[:, :, sl], lens, return_lse=True)
+        if check is not None:
+            check(i, out, lse, k[:, :, sl], v[:, :, sl], lens)
+        outs.append(out)
+        lses.append(lse)
+    return torch.stack(outs), torch.stack(lses)
+
+
+def _stacked_merge(outs, lses):
+    """``ops.merge_partials`` over the stacked pieces, in float32: (out,
+    the lse of the whole)."""
+    from repro_torch.kernels import ops
+    out = ops.merge_partials(outs, lses, lambda t: t.amax(0, keepdim=True),
+                             lambda t: t.sum(0, keepdim=True),
+                             torch.float32)[0]
+    return out, torch.logsumexp(lses, dim=0)
+
+
+def _check_fd_partial(rng, b, h, kh, S, d, c_dt, lens, what: str):
+    """flash_decode's (out, lse) against the plain version's on a whole
+    (b, kh, S, d) cache and on each of SEQ_PIECES pieces (cache lengths
+    ``lens``: pieces wholly past them, so local length 0, and lengths
+    inside a tile); the output without lse bitwise the lse output cast to
+    q's dtype; the pieces merged against the whole."""
+    from repro_torch.kernels import flash_decode, ref
+    q = torch.tensor(rng.normal(size=(b, h, d)), device="cuda").to(
+        torch.bfloat16)
+    cache = torch.tensor(rng.normal(size=(2, b, S, kh, d)),
+                         device="cuda").to(c_dt)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    clen = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    tag = f"flash_decode partial {what} b={b} h={h} kh={kh} d={d} " \
+          f"cache={str(c_dt)[6:]}"
+
+    def check(piece, out, lse, k, v, lens):
+        want, want_lse = ref.flash_decode_ref(q, k, v, lens, return_lse=True)
+        name = f"{tag} S={k.shape[2]} {piece} cache_len={lens.tolist()}"
+        _check(f"{name} out (float32)", out, want, TOL[torch.float32])
+        _check(f"{name} lse", lse, want_lse, LSE_TOL)
+        if not bool(torch.isfinite(lse).all() and torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: not finite")
+        plain = _launch(flash_decode, flash_decode.flash_decode, q, k, v,
+                        lens)
+        if not torch.equal(plain, out.to(q.dtype)):
+            raise AssertionError(f"{name}: the output without lse is not "
+                                 "the lse output cast to q's dtype")
+    whole, whole_lse = _launch(flash_decode, flash_decode.flash_decode, q,
+                               k, v, clen, return_lse=True)
+    check("whole", whole, whole_lse, k, v, clen)
+    outs, lses = _pieces(q, k, v, clen, SEQ_PIECES,
+                         lambda i, *a: check(f"piece {i}", *a))
+    out, lse = _stacked_merge(outs, lses)
+    live = clen > 0      # the lse of no live position is NEG_INF, not merged
+    _check(f"{tag} {SEQ_PIECES} pieces merged against the whole, out", out,
+           whole, TOL[torch.float32])
+    _check(f"{tag} {SEQ_PIECES} pieces merged against the whole, lse",
+           lse[live], whole_lse[live], LSE_TOL)
+
+
+def _seq_model():
+    """qwen3-8b at full width and depth as ``serve.run`` builds it (bf16
+    steps on float32 weights from one seed) and its BATCH x PROMPT
+    prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_step import (
+        make_decode_step, make_prefill_step,
+    )
+    cfg = get_config(ARCH)
+    model = build_model(cfg, torch.Generator("cuda").manual_seed(0),
+                        torch.float32)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(1, cfg.vocab_size, (BATCH, PROMPT)).astype(
+        np.int32)
+    pos = np.broadcast_to(np.arange(PROMPT, dtype=np.int32), (BATCH, PROMPT))
+    batch = {"tokens": tokens, "segment_ids": np.ones_like(tokens),
+             "positions": pos.copy()}
+    return {"model": model, "prefill": make_prefill_step(model),
+            "decode": make_decode_step(model),
+            "batch": {k: torch.from_numpy(v).cuda() for k, v in batch.items()}}
+
+
+def _check_seq_merge_model(served: dict):
+    """qwen3-8b at full width: the float32 cache of PROMPT + GEN positions
+    that a real BATCH x PROMPT prefill fills, then SEQ_DECODE_STEPS greedy
+    decode steps.  At every layer of every step, the pieces' partials
+    (SEQ_PIECES along the sequence, through the kernel) merged by
+    ``ops.merge_partials`` against the kernel on the whole cache, in
+    float32 before the cast, and that output cast against what
+    ``ops.decode_attention`` returned to the model, bitwise."""
+    from repro_torch.kernels import flash_decode, ops
+    model, batch = served["model"], served["batch"]
+    logits, kv = served["prefill"](batch)
+    b, s = batch["tokens"].shape
+    cache = model.init_cache(b, s + GEN, torch.float32)
+    for n in ("k", "v"):
+        cache[n][:, :, :s] = kv[n]
+    del kv
+    whole_path = ops.decode_attention
+    worst = {"out": 0.0, "lse": 0.0}
+
+    def checked(q, k, v, clen):
+        got = whole_path(q, k, v, clen)
+        whole, whole_lse = flash_decode.flash_decode(q, k, v, clen,
+                                                     return_lse=True)
+        if not torch.equal(got, whole.to(q.dtype)):
+            raise AssertionError("ops.decode_attention is not the whole "
+                                 "cache's float32 output cast")
+        out, lse = _stacked_merge(*_pieces(q, k, v, clen, SEQ_PIECES))
+        for key, a, w in (("out", out, whole), ("lse", lse, whole_lse)):
+            worst[key] = max(worst[key], (a - w).abs().max().item())
+        calls.append(clen[0].item())
+        return got
+    calls = []
+    ops.decode_attention = checked
+    try:
+        cur = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+        for t in range(s, s + SEQ_DECODE_STEPS):
+            logits, cache = served["decode"](cache, cur, t)
+            cur = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+    finally:
+        ops.decode_attention = whole_path
+    torch.cuda.synchronize()
+    layers = model.cfg.num_layers
+    ok = worst["out"] <= TOL[torch.float32] and worst["lse"] <= LSE_TOL
+    log(f"[seqdecode] {ARCH} full width, {layers} layers, {b} x {s} prefill "
+        f"into a float32 cache of {s + GEN}, {SEQ_DECODE_STEPS} decode steps "
+        f"(cache_len {sorted(set(calls))}): {len(calls)} attention calls, "
+        f"{SEQ_PIECES} pieces of {(s + GEN) // SEQ_PIECES} merged against "
+        f"the whole cache: max abs out {worst['out']:.3e} (atol "
+        f"{TOL[torch.float32]:g}) lse {worst['lse']:.3e} (atol "
+        f"{LSE_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if len(calls) != layers * SEQ_DECODE_STEPS or not ok:
+        raise AssertionError("the merged pieces disagree with the whole "
+                             "cache")
+    if not torch.isfinite(logits.float()).all():
+        raise AssertionError("decode logits not finite")
+
+
+def _time_partials(smi: str):
+    """Device ms (CUDA events around a graph replay) of flash_decode
+    without and with lse, at the serve shape (one call a layer of the
+    36-layer float32 cache, as ``_time_flash_decode``) and at the
+    decode_32k block (bf16 cache, four copies so L2 holds none), and the
+    block's byte bound."""
+    from repro_torch.kernels import flash_decode
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, h, kh, S, d = SEQ_BLOCK
+    shapes = {"serve": (BATCH, 32, 8, PROMPT + GEN, 128, torch.float32, 36),
+              "decode_32k block": (b, h, kh, S, d, torch.bfloat16, 4)}
+    for tag, (b, h, kh, S, d, dt, copies) in shapes.items():
+        kc, vc = (torch.randn((copies, b, S, kh, d), generator=gen,
+                              device="cuda").to(dt) for _ in range(2))
+        q = torch.randn((b, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        clen = torch.full((b,), S, dtype=torch.int32, device="cuda")
+        sets = [(q, kc[i].transpose(1, 2), vc[i].transpose(1, 2), clen)
+                for i in range(copies)]
+        iters = 10 * copies
+
+        def with_lse(*a):
+            return flash_decode.flash_decode(*a, return_lse=True)
+        plain = _time_ms(flash_decode.flash_decode, sets, iters)
+        lse = _time_ms(with_lse, sets, iters)
+        again = _time_ms(flash_decode.flash_decode, sets, iters)
+        kv_bytes = 2 * b * kh * S * d * kc.element_size()
+        nbytes = kv_bytes + _nbytes(q, clen) + b * h * (d + 1) * 4
+        log(f"[seqdecode] time {tag} b={b} h={h} kh={kh} S={S} d={d} "
+            f"cache={str(dt)[6:]}: device ms without lse {plain[0]:.4f} "
+            f"and {again[0]:.4f}, with lse {lse[0]:.4f}; bound "
+            f"{nbytes / H100_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B; K + V "
+            f"{kv_bytes} B, {kv_bytes / H100_BYTES_PER_S * 1e3:.4f} ms); "
+            f"{smi}")
+        del kc, vc
+
+
+def phase_seqdecode(served: dict):
+    """Phase 3d: the KV-sequence-parallel decode's parts on the card (the
+    collectives run on 4 gloo CPU ranks in tests/test_torch_sharded_step.py
+    and on meta shards in the dry-run: the machine has one card).
+    ``served``: qwen3-8b's model, steps and prompt."""
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    rng = np.random.default_rng(5)
+    S = PROMPT + GEN
+    piece = S // SEQ_PIECES
+    _check_fd_partial(rng, BATCH, 32, 8, S, 128, torch.float32,
+                      [S, piece + 1, 2 * piece + 9, 0], "serve shape")
+    b, h, kh, S, d = SEQ_BLOCK
+    piece = S // SEQ_PIECES
+    _check_fd_partial(rng, b, h, kh, S, d, torch.bfloat16,
+                      [S, 0, 1, 9, piece, piece + 13, 3 * piece - 1, S - 1],
+                      "decode_32k block")
+    _check_seq_merge_model(served)
+    _time_partials(smi)
+    log(f"[seqdecode] phase {time.perf_counter() - t0:.1f}s")
+
+
+def main_seqdecode():
+    """``--only seqdecode``: the two kernels the qwen3-8b prefill and
+    decode run, built, and phase 3d on a freshly drawn qwen3-8b; nothing
+    goes in the ``kernels`` line."""
+    phase_build(("packed_attention", "flash_decode"))
+    served = _seq_model()
+    phase_seqdecode(served)
+    return []
+
+
 def main_shard():
     """``--only shard``: the three attention kernels' build and phase 3c;
     nothing is timed, so its ``kernels`` line is empty."""
@@ -4550,7 +4808,7 @@ def main():
                                            "trainer", "vlm", "moe",
                                            "rwkvtrain", "dense", "hybrid",
                                            "audio", "remat", "dryrun",
-                                           "shard"],
+                                           "shard", "seqdecode"],
                         default=None, help="run only this path's builds, "
                         "checks and timing")
     args = parser.parse_args()
@@ -4565,7 +4823,8 @@ def main():
                    "rwkvtrain": main_rwkvtrain,
                    "dense": main_dense, "hybrid": main_hybrid,
                    "audio": main_audio, "remat": main_remat,
-                   "dryrun": main_dryrun, "shard": main_shard}[args.only]()
+                   "dryrun": main_dryrun, "shard": main_shard,
+                   "seqdecode": main_seqdecode}[args.only]()
         log(f"[done] {time.perf_counter() - t0:.1f}s after the device check")
         print(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {
@@ -4594,6 +4853,8 @@ def main():
     paths[f"serve:{ARCH}"], served = phase_serve(ARCH, prompt=PROMPT)
     phase_trace_prefill(ARCH, served)
     phase_trace_decode(ARCH, served)
+    phase_seqdecode(served)
+    stamp("phase 3d")
     del served          # frees the 16.4 GB of bf16 qwen3-8b weights
     paths[f"serve:{RWKV_ARCH}"], served = phase_serve(RWKV_ARCH,
                                                       prompt=PROMPT)

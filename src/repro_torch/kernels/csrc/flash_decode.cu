@@ -42,6 +42,12 @@
 //     layer's slice of the model cache (layers, b, S, kh, hd) in place.
 //     Caches whose pointers or row strides are not 16-byte aligned take a
 //     scalar load path.
+//   * A shard of a cache split over its sequence (the KV-sequence-parallel
+//     decode of src/repro/models/attention.py) asks for its partial result:
+//     given an lse pointer, the last CTA of a group also writes each head's
+//     log-sum-exp (natural log; NEG_INF where no position is live) and the
+//     output stays float32, so the shards' (out, lse) pairs merge without a
+//     rounding.  Without one, nothing else changes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -56,6 +62,7 @@ constexpr int DMAX = 128;      // head dim
 constexpr int RG = 2;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -111,6 +118,7 @@ struct Params {
   const void* v;
   const int* cache_len;
   void* out;
+  float* lse;       // (b, h) or null
   float* part_ml;   // (groups, G, n_split, 2): m (log2 units), l
   float* part_acc;  // (groups, G, n_split, DMAX)
   int* counter;     // (groups,), 0 between calls
@@ -131,7 +139,8 @@ constexpr int merge_bytes() {  // the row groups' acc, for the CTA merge
   return WARPS * RG * G * DMAX * 4;
 }
 
-template <typename TQ, typename TC, int G>
+// TO: the output's type, q's (TQ) or float32 where the lse is asked for
+template <typename TQ, typename TC, typename TO, int G>
 __global__ void __launch_bounds__(THREADS, G <= 4 ? 3 : 2)
 flash_decode_kernel(const Params p) {
   constexpr int VE = 16 / sizeof(TC);   // elements per 16-byte chunk
@@ -349,7 +358,7 @@ flash_decode_kernel(const Params p) {
   if (!is_last) return;
   // one warp per head; each lane merges the n_split partials of its 4
   // head-dim elements
-  TQ* og = static_cast<TQ*>(p.out) + ib * p.o_sb;
+  TO* og = static_cast<TO*>(p.out) + ib * p.o_sb;
   for (int g = warp; g < n_g; g += WARPS) {
     const long long row0 = (static_cast<long long>(grp) * G + g) * p.n_split;
     // one pass, rescaling as the maximum grows, so every split's loads can
@@ -374,40 +383,50 @@ flash_decode_kernel(const Params p) {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       if (lane * 4 + e < p.d)
-        og[(head0 + g) * p.o_sh + lane * 4 + e] = from_f32<TQ>(a[e] * inv);
+        og[(head0 + g) * p.o_sh + lane * 4 + e] = from_f32<TO>(a[e] * inv);
+    if (p.lse != nullptr && lane == 0)
+      p.lse[ib * p.h + head0 + g] = ls > 0.f ? mx * LN2 + logf(ls) : NEG_INF;
   }
   if (threadIdx.x == 0) p.counter[grp] = 0;  // ready for the next call
 }
 
-template <typename TQ, typename TC, int G>
+template <typename TQ, typename TC, typename TO, int G>
 cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
   constexpr int max_smem = ring_bytes<TC>(2) > merge_bytes<G>()
                                ? ring_bytes<TC>(2) : merge_bytes<G>();
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_decode_kernel<TQ, TC, G>,
+      flash_decode_kernel<TQ, TC, TO, G>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   if (attr != cudaSuccess) return attr;
   const int ring = ring_bytes<TC>(p.stages);
   const int smem = ring > merge_bytes<G>() ? ring : merge_bytes<G>();
   const dim3 grid(p.n_split, p.kh * p.n_gchunks, b);
-  flash_decode_kernel<TQ, TC, G><<<grid, THREADS, smem, stream>>>(p);
+  flash_decode_kernel<TQ, TC, TO, G><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TC>
+template <typename TQ, typename TC, typename TO>
 cudaError_t launch_g(const Params& p, int b, int g, cudaStream_t stream) {
   switch (g) {
-    case 1: return launch<TQ, TC, 1>(p, b, stream);
-    case 2: return launch<TQ, TC, 2>(p, b, stream);
-    case 4: return launch<TQ, TC, 4>(p, b, stream);
-    case 8: return launch<TQ, TC, 8>(p, b, stream);
+    case 1: return launch<TQ, TC, TO, 1>(p, b, stream);
+    case 2: return launch<TQ, TC, TO, 2>(p, b, stream);
+    case 4: return launch<TQ, TC, TO, 4>(p, b, stream);
+    case 8: return launch<TQ, TC, TO, 8>(p, b, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// the output in q's type, or in float32 beside the lse
+template <typename TQ, typename TC>
+cudaError_t launch_o(const Params& p, int b, int g, cudaStream_t stream) {
+  return p.lse != nullptr ? launch_g<TQ, TC, float>(p, b, g, stream)
+                          : launch_g<TQ, TC, TQ>(p, b, g, stream);
+}
+
 }  // namespace
 
-// q_dtype / c_dtype: 0 = float32, 1 = bfloat16; out has q's dtype.
+// q_dtype / c_dtype: 0 = float32, 1 = bfloat16; out has q's dtype, or is
+// float32 where lse (float32 (b, h), natural log) is not null.
 // g: q heads per CTA (1, 2, 4 or 8); n_gchunks = ceil((h / kh) / g).
 // part_ml, part_acc: float32 scratch of b * kh * n_gchunks * g * n_split
 // times 2 and 128; counter: int32 of b * kh * n_gchunks, zero before the
@@ -416,7 +435,7 @@ cudaError_t launch_g(const Params& p, int b, int g, cudaStream_t stream) {
 // chunks.  One kernel launch; returns its cudaError_t (0: accepted).
 extern "C" int flash_decode_launch(
     const void* q, const void* k, const void* v, const void* cache_len,
-    void* out, void* part_ml, void* part_acc, void* counter, int b, int h,
+    void* out, void* lse, void* part_ml, void* part_acc, void* counter, int b, int h,
     int kh, int S, int d, int g, int split_len, int n_split, int stages,
     int vec, long long q_sb, long long q_sh, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
@@ -431,6 +450,7 @@ extern "C" int flash_decode_launch(
   p.v = v;
   p.cache_len = static_cast<const int*>(cache_len);
   p.out = out;
+  p.lse = static_cast<float*>(lse);
   p.part_ml = static_cast<float*>(part_ml);
   p.part_acc = static_cast<float*>(part_acc);
   p.counter = static_cast<int*>(counter);
@@ -451,12 +471,12 @@ extern "C" int flash_decode_launch(
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (q_dtype == 0 && c_dtype == 0) err = launch_g<float, float>(p, b, g, s);
+  if (q_dtype == 0 && c_dtype == 0) err = launch_o<float, float>(p, b, g, s);
   if (q_dtype == 0 && c_dtype == 1)
-    err = launch_g<float, __nv_bfloat16>(p, b, g, s);
+    err = launch_o<float, __nv_bfloat16>(p, b, g, s);
   if (q_dtype == 1 && c_dtype == 0)
-    err = launch_g<__nv_bfloat16, float>(p, b, g, s);
+    err = launch_o<__nv_bfloat16, float>(p, b, g, s);
   if (q_dtype == 1 && c_dtype == 1)
-    err = launch_g<__nv_bfloat16, __nv_bfloat16>(p, b, g, s);
+    err = launch_o<__nv_bfloat16, __nv_bfloat16>(p, b, g, s);
   return static_cast<int>(err);
 }

@@ -6,6 +6,9 @@ masked.  The wrapper takes CUDA tensors only and raises on anything the
 kernel does not take; ``kernels.ops`` sends CPU tensors to ``kernels.ref``
 instead.  ``launches`` counts the wrapper's calls that launched the kernel;
 a call is one kernel launch (the combine of the split partials is fused).
+With ``return_lse`` a call gives a shard's partial result, the float32
+output and its log-sum-exp, which ``ops.merge_partials`` merges across the
+shards of a cache split over its sequence.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ RESIDENT = 3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+# the kernel's mask value, and the lse of a shard with no live position
+NEG_INF = -1e30
 _scratch: dict = {}
 
 
@@ -103,20 +108,22 @@ def _aligned(t: torch.Tensor, strides) -> bool:
 def _kernel():
     lib = _build.load("flash_decode")
     fn = lib.flash_decode_launch
-    fn.argtypes = [_P] * 8 + [_I] * 10 + [_L] * 10 + [_F, _I, _I, _P]
+    fn.argtypes = [_P] * 9 + [_I] * 10 + [_L] * 10 + [_F, _I, _I, _P]
     fn.restype = _I
     return fn
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, cache_len: torch.Tensor
-                 ) -> torch.Tensor:
+                 v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                 return_lse: bool = False):
     """q: (b, h, d); caches: (b, kh, S, d); cache_len: (b,) int32.
 
     q and the caches are float32 or bfloat16, independently; any strides
     with a unit last stride, so a layer's slice of the model cache
     (layers, b, S, kh, d) is read in place through ``permute``.  d <= 128.
-    Returns (b, h, d) in q's dtype.
+    Returns (b, h, d) in q's dtype; with ``return_lse``, (out (b, h, d)
+    float32, lse (b, h) float32 in natural-log units, ``NEG_INF`` where
+    cache_len is 0).
     """
     global launches
     kernels.refuse_grad("flash_decode", (q, k_cache, v_cache))
@@ -147,9 +154,13 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("cache_len must be contiguous int32 of shape "
                          f"{(b,)}; got {cache_len.dtype} "
                          f"{tuple(cache_len.shape)}")
-    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, h, d), device=q.device,
+                      dtype=torch.float32 if return_lse else q.dtype)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if b * h == 0 or S == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(NEG_INF)) if return_lse else out
     plan = split_plan(b, kh, h // kh, S, _sm_count(q.device.index))
     part_ml, part_acc, counter = _scratch_for(
         q.device, b * kh * plan.n_gchunks, plan)
@@ -159,7 +170,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cache_len.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
+            cache_len.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None, part_ml.data_ptr(),
             part_acc.data_ptr(), counter.data_ptr(), b, h, kh, S, d,
             plan.heads, plan.split_len, plan.n_split, plan.stages, int(vec),
             *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
@@ -170,4 +182,4 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

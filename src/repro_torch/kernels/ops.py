@@ -18,11 +18,22 @@ shards through ``local_map``, so a shard of CUDA tensors runs the
 hand-written kernel and a meta shard the plain version.  The first
 argument's placements on the dims the kernel runs in parallel over (batch
 and heads) are kept; any dim it reduces over (a sequence, a head dim) is
-made whole first, and the other arguments are placed to match.  So a KV
-cache sharded over its sequence (``DECODE_RULES``' ``kv_seq``) is gathered
-before ``decode_attention``; combining partial softmaxes across devices is
-queued (ROADMAP.md).  The GQA keys and values, whose heads stay whole, are
-cut on each rank to the heads its query shard uses.
+made whole first, and the other arguments are placed to match.  The GQA
+keys and values, whose heads stay whole, are cut on each rank to the heads
+its query shard uses.
+
+The one exception is the KV-sequence-parallel decode of the reference
+(``repro.models.attention.decode_attention`` under ``DECODE_RULES``' or
+``LONG_DECODE_RULES``' ``kv_seq``): a KV cache split over its sequence
+stays in place.  Each rank runs the kernel (or the plain version) on its
+shard for a partial result, the float32 output and its log-sum-exp, and
+``merge_partials`` merges the partials with all-reduces over the mesh dims
+that split the sequence: a max of the lse, then one sum of the weighted
+outputs with their weights beside them.  The all-reduces are functional
+collectives inside the ``local_map``'d function, so ``CommDebugMode``
+counts them and they run on meta shards in the dry-run's fake world; the
+one function body also serves ``chip_smoke.py``, which merges pieces of a
+cache stacked on one card with plain reductions.
 """
 from __future__ import annotations
 
@@ -35,7 +46,9 @@ from repro_torch.kernels import packed_attention_bwd as _packed_attention_bwd
 from repro_torch.kernels import ref
 from repro_torch.kernels import wkv6 as _wkv6
 from repro_torch.kernels import wkv6_bwd as _wkv6_bwd
-from repro_torch.sharding.logical import dtensor_mesh, on_shards
+from repro_torch.sharding.logical import (
+    dtensor_mesh, on_shards, seq_split_dims,
+)
 
 
 _PLAIN = ("cpu", "meta")     # devices whose tensors take the plain versions
@@ -124,9 +137,84 @@ def packed_attention(q, k, v, q_seg, kv_seg, *, causal: bool = True
                                               causal=causal)
 
 
+def merge_partials(out, lse, reduce_max, reduce_sum, dtype
+                   ) -> torch.Tensor:
+    """The softmax over a whole cache from its pieces' partial results.
+
+    ``out`` (..., d) and ``lse`` (...) float32 are one piece's (or a stack
+    of pieces'), as ``flash_decode(..., return_lse=True)`` gives them;
+    ``reduce_max`` and ``reduce_sum`` reduce a tensor over the pieces (an
+    all-reduce over the mesh dims that split the sequence, or a reduction
+    over a stacked dim kept as size 1).  The stable merge: M = max lse,
+    w = exp(lse - M), out = sum w out / sum w, in float32, cast to
+    ``dtype`` once.  A piece with no live position (lse ``NEG_INF``)
+    weighs 0; where no piece has one, the output is 0, as the whole-cache
+    softmax gives it."""
+    w = torch.exp(lse - reduce_max(lse))[..., None]
+    acc = reduce_sum(torch.cat([out * w, w], dim=-1))
+    return (acc[..., :-1] / acc[..., -1:]).to(dtype)
+
+
+def decode_partial(q, k_cache, v_cache, cache_len):
+    """A cache shard's (out, lse), float32: the kernel on the card, the
+    plain version on the CPU and on meta tensors."""
+    if q.device.type in _PLAIN:
+        return ref.flash_decode_ref(q, k_cache, v_cache, cache_len,
+                                    return_lse=True)
+    return _flash_decode.flash_decode(q, k_cache, v_cache, cache_len,
+                                      return_lse=True)
+
+
+def _all_reduce(t, op: str, groups):
+    """``t`` all-reduced by ``op`` over each (mesh, dim) group in turn."""
+    from torch.distributed import _functional_collectives as funcol
+    for group in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, group))
+    return t
+
+
+def _seq_split_decode(q, k_cache, v_cache, cache_len, seq_dims):
+    """``decode_attention`` on DTensor caches whose sequence (dim 2) is
+    split over the mesh dims ``seq_dims``: each rank's partial on its own
+    cache shard (its ``cache_len`` made local on the device: no host
+    sync), merged over ``seq_dims``.  Batch and heads are placed as
+    ``q``'s are, the rest as in the whole-cache path."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+    mesh = k_cache.device_mesh
+    by_dim = {d: r for r, d in _BH1.items()}
+    mesh_roles = ["s" if i in seq_dims else
+                  by_dim.get(p.dim) if p.is_shard() else None
+                  for i, p in enumerate(q.placements)]
+    kv_roles = {"b": 0, "s": 2}
+    shape, first = compute_local_shape_and_global_offset(
+        k_cache.shape, mesh, [Shard(kv_roles[r]) if r in kv_roles
+                              else Replicate() for r in mesh_roles])
+    groups = [(mesh, i) for i in seq_dims]
+    heads = q.shape[1]
+
+    def local(q_first, q, k_cache, v_cache, cache_len):
+        k_cache, v_cache = (_kv_heads(t, heads, q_first[1], q.shape[1])
+                            for t in (k_cache, v_cache))
+        mine = (cache_len - first[2]).clamp(0, shape[2]).to(torch.int32)
+        out, lse = decode_partial(q, k_cache, v_cache, mine)
+        return merge_partials(
+            out, lse, lambda t: _all_reduce(t, "max", groups),
+            lambda t: _all_reduce(t, "sum", groups), q.dtype)
+    return on_shards(local, (q, k_cache, v_cache, cache_len),
+                     (_BH1, kv_roles, kv_roles, _B), (_BH1,), mesh_roles,
+                     with_offset=True)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     """Layout: q (b, h, d); caches (b, kh, S, d); cache_len (b,)."""
     if dtensor_mesh(q) is not None:
+        seq_dims = seq_split_dims(k_cache)
+        if seq_dims:
+            return _seq_split_decode(q, k_cache, v_cache, cache_len,
+                                     seq_dims)
         def local(first, q, k_cache, v_cache, cache_len):
             k_cache, v_cache = (_kv_heads(t, heads, first[1], q.shape[1])
                                 for t in (k_cache, v_cache))

@@ -9,7 +9,9 @@ plain versions of what the training path adds: ``packed_attention_lse_ref``
 backward kernel) and ``packed_attention_bwd_bf16_ref`` (the same, rounding
 where the kernel rounds), and ``packed_attention_live_tiles``, the tile
 pairs the kernels' skip rule keeps; the tests and chip_smoke.py use them,
-no model does.  Two
+no model does.  ``flash_decode_ref(..., return_lse=True)`` is the plain
+version of a cache shard's partial decode, which ``ops.merge_partials``
+merges.  Two
 plain versions of WKV6 sit here: the sequential oracle ``wkv6_ref`` and
 ``wkv6_chunked``, the port of the JAX model's chunked path
 (``repro.models.rwkv.wkv6_chunked``), which ``models.rwkv`` re-exports
@@ -165,8 +167,12 @@ def packed_attention_live_tiles(q_seg, kv_seg, *, causal: bool = True):
     return live
 
 
-def flash_decode_ref(q, k_cache, v_cache, cache_len):
-    """q: (b, h, d); caches: (b, kh, S, d); cache_len: (b,)."""
+def flash_decode_ref(q, k_cache, v_cache, cache_len, return_lse=False):
+    """q: (b, h, d); caches: (b, kh, S, d); cache_len: (b,).  With
+    ``return_lse``, the partial result of a shard of a cache split over
+    its sequence, as the kernel gives it: (out (b, h, d), lse (b, h)),
+    both float32, the lse in natural-log units and ``NEG_INF`` where no
+    position is live (the output is 0 there)."""
     b, h, d = q.shape
     kh, S = k_cache.shape[1], k_cache.shape[2]
     if kh != h:
@@ -182,6 +188,9 @@ def flash_decode_ref(q, k_cache, v_cache, cache_len):
     l = torch.sum(p, -1, keepdim=True)
     out = torch.einsum("bhk,bhkd->bhd", p / torch.clamp(l, min=1e-20),
                        v_cache.float())
+    if return_lse:
+        m, l = m[..., 0], l[..., 0]
+        return out, torch.where(l > 0, m + torch.log(l), NEG_INF)
     return out.to(q.dtype)
 
 

@@ -80,8 +80,11 @@ class Collectives:
         default_factory=lambda: {k: 0 for k in KINDS})
     wire_bytes: dict = dataclasses.field(
         default_factory=lambda: {k: 0.0 for k in KINDS})
+    # each collective in order: (kind, its result's shape, group size)
+    each: list = dataclasses.field(default_factory=list)
 
-    def add(self, kind: str, rb: int, n: int) -> None:
+    def add(self, kind: str, rb: int, n: int, shape: tuple = ()) -> None:
+        self.each.append((kind, tuple(shape), n))
         self.counts[kind] += 1
         self.result_bytes[kind] += rb
         self.wire_bytes[kind] += wire_bytes(kind, rb, n)
@@ -114,7 +117,7 @@ def _counter(tally: Collectives):
             kind = _KIND.get(name) if space in _SPACES else None
             if out is not NotImplemented and kind is not None:
                 tally.add(kind, out.numel() * out.element_size(),
-                          _group_size(args))
+                          _group_size(args), out.shape)
             return out
     return Counter()
 

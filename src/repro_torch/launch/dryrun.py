@@ -38,8 +38,10 @@ pass), and ``collective_counts``, ``collective_result_bytes`` and
 ``collective_wire_bytes`` (per device, by the reference's kinds).  It adds
 ``op_flops``, ``op_bytes`` and ``op_count``: the whole global step's
 counts on one device, the same on every mesh (the meta pass runs once per
-arch and shape).  The reference's ``hlo_flops`` are per device after SPMD
-partitioning, so the two do not compare.  It leaves out ``compile_s``,
+arch and shape); and ``torch``, the release that counted (DTensor's
+choices, and so the collectives, change with it).  The reference's
+``hlo_flops`` are per device after SPMD partitioning, so the two do not
+compare.  It leaves out ``compile_s``,
 ``memory_analysis``, ``hlo_*`` and ``while_trips``: the port compiles no
 program, so there is no compiled HLO, memory analysis or loop nest to
 read.  The collectives are DTensor's choices, not GSPMD's; PERF.md
@@ -56,6 +58,8 @@ import json
 import pathlib
 import time
 import traceback
+
+import torch
 
 from repro_torch.configs.base import (
     SHAPES, ModelConfig, ShapeConfig, assigned_archs, get_config,
@@ -221,14 +225,16 @@ def lower_cell(arch: str, shape_name: str, mesh_name: str, *,
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-                "status": "skipped", "reason": why}
+                "status": "skipped", "reason": why,
+                "torch": torch.__version__}
 
     model = build_meta_model(cfg)
     mesh = named_mesh(mesh_name)
     rules = ShardingRules(mesh, rules_for(shape))
     n_params = pdefs.param_count(model_defs(cfg))
     record = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-              "status": "ok", "params": n_params}
+              "status": "ok", "params": n_params,
+              "torch": torch.__version__}
     record["persistent_bytes_per_device"] = persistent_bytes(
         model, shape, mesh, rules)
     if shape.kind == "decode":   # the new token's spec, for the fallbacks
@@ -288,6 +294,7 @@ def main(argv=None):
                     rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
                            "status": "error",
                            "error": f"{type(e).__name__}: {e}",
+                           "torch": torch.__version__,
                            "traceback": traceback.format_exc()[-4000:]}
                 path.write_text(json.dumps(rec, indent=2))
                 extra = ""

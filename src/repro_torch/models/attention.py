@@ -5,8 +5,9 @@ The port of ``repro.models.attention``, in its layouts (b, s, h, d):
                                  ``kernels.ops.packed_attention`` (the CUDA
                                  kernel on the card).
   * ``full_segment_attention`` — unchunked plain oracle (tests).
-  * ``decode_attention``       — one-token step against a KV cache; goes
-                                 through ``kernels.ops.decode_attention``.
+  * ``decode_attention``       — one-token step against a (possibly
+                                 sequence-sharded) KV cache; goes through
+                                 ``kernels.ops.decode_attention``.
   * ``write_position``         — a decode step's in-place write of its new
                                  k or v row into a cache, DTensor or not.
 
@@ -78,7 +79,12 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     slice of the model cache); cache_len: (b,) int32 valid positions.
 
     Returns (b,1,h,d) in q's dtype; the softmax runs in float32 whatever
-    the cache's dtype, as the JAX package's promoted einsum does.
+    the cache's dtype, as the JAX package's promoted einsum does.  On
+    DTensor caches whose S is split (``DECODE_RULES``' or
+    ``LONG_DECODE_RULES``' ``kv_seq``) the cache stays in place: each rank
+    attends over its own positions and the partial softmaxes are merged by
+    all-reduces, the KV-sequence-parallel decode of the reference
+    (``kernels.ops``).
     """
     out = ops.decode_attention(q[:, 0], k_cache.transpose(1, 2),
                                v_cache.transpose(1, 2), cache_len)

@@ -200,8 +200,11 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
     ``encoder_frames`` positions.
 
     The cache is updated in place (JAX's scan returns a new one): each
-    layer writes its new self-attention k/v row into its slice.  Returns
-    (logits (b, 1, vocab), the same cache dict).
+    layer writes its new self-attention k/v row into its slice.  Under the
+    decode rules the self-attention cache's positions are split over the
+    mesh and merged (``kernels.ops``' KV-sequence-parallel decode); the
+    cross cache's frames are not split, so its attention reads it whole.
+    Returns (logits (b, 1, vocab), the same cache dict).
     """
     S = cache["k"].shape[2]
     if not 0 <= pos < S:

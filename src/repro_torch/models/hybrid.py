@@ -191,8 +191,11 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
     The cache is updated in place (JAX's scan returns a new one): each
     Mamba2 layer writes its new state into its slice, and each application
     of the shared block its new k/v row into its slice of the (n_blocks,
-    b, S, kh, hd) buffers, which attention reads through strides.  Returns
-    (logits (b, 1, vocab), the same cache dict).
+    b, S, kh, hd) buffers, which attention reads through strides (on a
+    cache whose S is split over a mesh, as ``LONG_DECODE_RULES`` splits it
+    over two mesh dims, each rank its own positions, merged:
+    ``kernels.ops``).  Returns (logits (b, 1, vocab), the same cache
+    dict).
     """
     S = cache["k"].shape[2]
     if not 0 <= pos < S:

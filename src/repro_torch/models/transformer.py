@@ -165,7 +165,9 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int):
     The cache is updated in place (JAX's ``dynamic_update_slice`` returns
     a new one): each layer writes its new k/v row into its slice of the
     (layers, b, S, kh, hd) buffers, and attention reads that slice through
-    strides.  Returns (logits (b, 1, vocab), the same cache dict).
+    strides (on a cache whose S is split over a mesh, each rank its own
+    positions, merged: ``kernels.ops``).  Returns (logits (b, 1, vocab),
+    the same cache dict).
     """
     S = cache["k"].shape[2]
     if not 0 <= pos < S:

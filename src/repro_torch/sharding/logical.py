@@ -21,7 +21,8 @@ turns a spec into DTensor placements; ``local_shape`` gives a shard's shape.
 DTensors: ``distribute`` and ``distribute_tree`` place tensors by the
 rules, ``sharded`` is the context a sharded step runs in,
 ``on_shards`` and ``batch_local`` run a function on each rank's local
-shards (``local_map``), and ``placed_like`` puts a gradient on its
+shards (``local_map``), ``seq_split_dims`` names the mesh dims that split
+a KV cache's sequence, and ``placed_like`` puts a gradient on its
 param's placements.
 """
 from __future__ import annotations
@@ -338,6 +339,17 @@ class _Replicated(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
+def seq_split_dims(cache) -> list[int]:
+    """The mesh dims of more than one device over which a DTensor KV cache
+    in ``kernels.ops``' (b, kh, S, d) layout splits its sequence (dim 2);
+    ``[]`` for any other tensor."""
+    mesh = dtensor_mesh(cache)
+    if mesh is None:
+        return []
+    return [i for i, p in enumerate(cache.placements)
+            if p.is_shard(2) and mesh.size(i) > 1]
+
+
 def placed_like(t, ref):
     """``t`` redistributed to ``ref``'s placements when both are DTensors
     (a gradient to its param's shards: one reduce-scatter of a ``Partial``
@@ -355,7 +367,8 @@ def on_shards(fn, args, roles, out_roles, mesh_roles=None,
 
     ``roles[i]`` maps role names (``"b"`` batch, ``"h"`` heads, ``"e"``
     experts) to the dims of ``args[i]`` that ``fn`` computes independently
-    over.  ``mesh_roles`` names the role each mesh dim shards (None: that
+    over (or, as ``"s"`` a KV cache's sequence, that ``fn`` merges over
+    with collectives of its own).  ``mesh_roles`` names the role each mesh dim shards (None: that
     dim is whole); by default, the role of the dim ``args[0]`` is sharded
     on there.  Every argument is redistributed to shard its dim of each
     mesh dim's role, and to be whole otherwise (``CommDebugMode`` counts

@@ -11,8 +11,9 @@ Its meta pass must count the FLOPs that ``FlopCounterMode`` counts of the
 same step on real CPU tensors, for the reduced config of each family.
 
 Its sharded pass (``launch.collectives``) counts no collective on the 1 x 1
-mesh, uses the reference's ring formulas, and counts a hand-reckoned cell
-exactly (``test_hand_reckoned_prefill_cell``).
+mesh, uses the reference's ring formulas, and counts hand-reckoned cells
+exactly (``test_hand_reckoned_prefill_cell``, and
+``test_hand_reckoned_decode_cell`` for the KV-sequence-parallel decode).
 """
 import importlib
 import json
@@ -43,7 +44,7 @@ COLLECTIVE_KEYS = {"collective_counts", "collective_result_bytes",
 RECORD_KEYS = {"arch", "shape", "mesh", "status", "params",
                "persistent_bytes_per_device", "model_flops",
                "dropped_shardings", "trace_s", "op_flops", "op_bytes",
-               "op_count"} | COLLECTIVE_KEYS
+               "op_count", "torch"} | COLLECTIVE_KEYS
 
 _JAX_CELLS = r"""
 import functools, json
@@ -241,6 +242,7 @@ def test_cli_writes_records_with_the_keys(tmp_path):
     rec = json.loads((tmp_path / "qwen3-8b__decode_32k__local.json")
                      .read_text())
     assert set(rec) == RECORD_KEYS and rec["status"] == "ok"
+    assert rec["torch"] == torch.__version__
     assert rec["op_flops"] > rec["model_flops"] > 0 and rec["op_count"] > 0
     assert rec["dropped_shardings"] == []
     for key in COLLECTIVE_KEYS:          # nothing moves on one device
@@ -322,6 +324,55 @@ def test_hand_reckoned_prefill_cell():
                                                   **{"all-gather": 212_992})
     assert rec["collective_wire_bytes"] == dict(zero,
                                                 **{"all-gather": 106_496})
+
+
+def test_hand_reckoned_decode_cell():
+    """Reduced qwen3-8b (2 layers, d 64, 4 heads and 2 KV heads of 16,
+    d_ff 128, vocab 256), one decode step at the last position of a bf16
+    cache of 64, batch 2, on a (1, 4) ("data", "model") mesh under
+    ``DECODE_RULES`` (torch 2.13; DTensor's choices change with the
+    release).  Nothing is split over ``data``; over ``model`` the heads,
+    the MLP and the vocabulary are split, and the cache's sequence: 16
+    positions a device.  The serve cast makes the weights bf16.
+
+    - The KV-sequence-parallel merge, a layer: an all-reduce (max) of the
+      (2, 4) float32 lse, 32 bytes, and one (sum) of the weighted outputs
+      beside their weights, (2, 4, 16 + 1) float32, 544 bytes: 4
+      all-reduces, 1,152 bytes.  The cache is never gathered (the
+      whole-cache path gathered k and v a layer: 4 all-gathers of
+      2 x 2 x 64 x 16 x 2 = 8,192 bytes).
+    - Whole weights on each device, by all-gather: the embedding table for
+      the batch-local lookup (256 x 64, 32,768 B); ``wq`` a layer for
+      ``head_project`` (64 x 4 x 16, 8,192 B; ``wk`` and ``wv`` hold the
+      replicated KV heads); ``wo`` a layer, since attention's output is
+      whole over ``model`` (8,192 B); layer 1's ``w_gate`` and ``w_up``
+      (64 x 128, 16,384 B each); the unembedding (64 x 256, 32,768 B).
+      8 all-gathers, 131,072 B.
+    - The pending sum over ``model`` that ``w_down``'s split contraction
+      leaves in the residual stream (layer 0's FFN moves nothing: its
+      input is whole), reduced where a value is read, f32 (2, 1, 64) 512
+      B or bf16 256 B: layer 1's attention norm (512) and its three
+      projections' inputs (256 each), its FFN norm (512), the gate's
+      product (2, 1, 128) bf16 (512), the final norm (512): 7
+      all-reduces, 2,816 B.
+    - ``shard(..., "act_mlp")`` and ``shard(..., "act_vocab")`` scatter
+      layer 1's (2, 1, 32) bf16 MLP activations (128 B) and the (2, 1,
+      64) logits (256 B): 2 reduce-scatters, 384 B.
+    So 11 all-reduces of 3,968 B, 8 all-gathers of 131,072 B and 2
+    reduce-scatters of 384 B; over a group of 4 the wire is 3/2, 3/4 and
+    3 times the result."""
+    from repro_torch.configs.qwen3_8b import reduced
+    rec = dryrun.collective_pass(reduced(), ShapeConfig("d", "decode", 64, 2),
+                                 MeshShape(("data", "model"), (1, 4)))
+    zero = dict.fromkeys(collectives.KINDS, 0)
+    assert rec["collective_counts"] == dict(
+        zero, **{"all-reduce": 11, "all-gather": 8, "reduce-scatter": 2})
+    assert rec["collective_result_bytes"] == dict(
+        zero, **{"all-reduce": 3_968, "all-gather": 131_072,
+                 "reduce-scatter": 384})
+    assert rec["collective_wire_bytes"] == dict(
+        zero, **{"all-reduce": 5_952, "all-gather": 98_304,
+                 "reduce-scatter": 1_152})
 
 
 def test_expert_transpose_and_the_cuda_all_to_all():

@@ -7,9 +7,16 @@ compute cast off: ``train_step.COMPUTE_DTYPE`` float32), under the remat
 policy ``"layer"`` and, for the dense config, ``"dots_saveable"``;
 reduced qwen3-8b's loss and gradients in bf16 compute on JAX's weights;
 and reduced qwen3-8b's prefill and four decode steps under
-``DECODE_RULES``, whose cache is sharded over its sequence, in float32.  Rank 0 saves every result
-(``full_tensor()``).  The test process runs the same steps unsharded and,
-for the bf16 case, JAX's step (``tests/test_torch_train.py``'s setup).
+``DECODE_RULES``, whose cache is sharded over its sequence, in float32.
+Then the KV-sequence-parallel decode (``kernels.ops``: each rank's partial
+on its cache shard, merged by all-reduces): decode steps at positions
+``SPREAD`` (so every shard holds live positions, some written, some zero)
+of reduced qwen3-8b under ``DECODE_RULES`` (the sequence over ``model``)
+and of reduced zamba2-7b at batch 1 under ``LONG_DECODE_RULES`` (over
+``data`` and ``model``), each under ``launch.collectives.count``.  Rank 0
+saves every result (``full_tensor()``).  The test process runs the same
+steps unsharded and, for the bf16 case, JAX's step
+(``tests/test_torch_train.py``'s setup).
 
 Tolerances: sharded against unsharded, float32, 1e-5 (rtol and atol); the
 sums over a sharded dim run in another order, nothing else differs.
@@ -37,6 +44,11 @@ CASES = {**{f: (f, "layer") for f in FAMILIES},
          "dense-dots_saveable": ("dense", "dots_saveable")}
 B, S = 2, 64
 DECODE_STEPS = 4
+# the sequence-parallel decode's positions: on a cache of S split in 2
+# (qwen3-8b) or 4 (zamba2-7b) pieces, each piece holds one at least, or
+# zero rows below one
+SPREAD = (0, 1, 21, 40, S - 1)
+SEQ_CASES = {"dense": ("DECODE_RULES", B), "hybrid": ("LONG_DECODE_RULES", 1)}
 TOL = 1e-5
 LOSS_TOL = 2e-3           # tests/test_torch_train.py
 GRAD_REL_L2 = 3e-2
@@ -48,11 +60,11 @@ def _cfg(family, remat="layer"):
             remat=remat)
 
 
-def _batch(cfg) -> dict:
+def _batch(cfg, b: int = B) -> dict:
     sys.path.insert(0, str(ROOT / "tests"))
     from conftest import make_lm_batch
     return {k: torch.from_numpy(np.asarray(v))
-            for k, v in make_lm_batch(cfg, B, S, seed=0).items()}
+            for k, v in make_lm_batch(cfg, b, S, seed=0).items()}
 
 
 def _model(cfg, jax_params=None):
@@ -99,6 +111,18 @@ def _decode(model, cache, batch):
     out = []
     for t in range(DECODE_STEPS):
         logits, cache = step(cache, batch["tokens"][:, t:t + 1], t)
+        out.append(_full(logits))
+    return torch.stack(out)
+
+
+def _decode_spread(model, cache, tokens):
+    """The logits of decode steps at ``SPREAD`` (token t at position
+    SPREAD[t]) on ``cache``."""
+    from repro_torch.train import train_step as ts
+    step = ts.make_decode_step(model)
+    out = []
+    for t, pos in enumerate(SPREAD):
+        logits, cache = step(cache, tokens[:, t:t + 1], pos)
         out.append(_full(logits))
     return torch.stack(out)
 
@@ -163,6 +187,23 @@ def _rank_main(rank: int, port: int, out: str) -> None:
                                rules.spec(("batch", None), (B, S)), mesh)
         res["serve"] = (logits, _decode(model, cache, {"tokens": tokens}),
                         [str(p) for p in placed])
+
+    from repro_torch.launch import collectives
+    for family, (mapping, b) in SEQ_CASES.items():
+        cfg = _cfg(family)
+        model = _model(cfg)
+        mapping = getattr(lg, mapping)
+        with lg.use_rules(mesh, mapping) as rules:
+            distribute_model(model, mesh, mapping)
+            cache = lg.distribute_tree(
+                model.init_cache(b, S, torch.float32), model.cache_axes(),
+                rules)
+            tokens = lg.distribute(_batch(cfg, b)["tokens"],
+                                   rules.spec(("batch", None), (b, S)), mesh)
+            steps, tally = collectives.count(_decode_spread, model, cache,
+                                             tokens)
+            res[f"seq-{family}"] = (steps, tally.each,
+                                    str(cache["k"].placements))
     if rank == 0:
         torch.save(res, pathlib.Path(out) / "sharded.pt")
     dist.destroy_process_group()
@@ -241,6 +282,51 @@ def test_sharded_prefill_and_decode_equal_unsharded(ranks, monkeypatch):
     assert placed[0] == "(Shard(dim=1), Shard(dim=2))"   # batch, kv_seq
     _close(got_logits, logits, "prefill logits")
     _close(got_steps, steps, "decode logits")
+
+
+@pytest.mark.parametrize("family", list(SEQ_CASES))
+def test_seq_split_decode_equals_unsharded(ranks, family, monkeypatch):
+    """Each rank decodes on its own cache shard and the partials merge;
+    reduced qwen3-8b's sequence split over ``model``, reduced zamba2-7b's
+    (batch 1, ``LONG_DECODE_RULES``) over ``data`` and ``model``."""
+    _float32(monkeypatch.setattr)
+    cfg = _cfg(family)
+    model = _model(cfg)
+    b = SEQ_CASES[family][1]
+    want = _decode_spread(model, model.init_cache(b, S, torch.float32),
+                          _batch(cfg, b)["tokens"])
+    got, _, placed = ranks[f"seq-{family}"]
+    assert placed == {"dense": "(Shard(dim=1), Shard(dim=2))",
+                      "hybrid": "(Shard(dim=2), Shard(dim=2))"}[family]
+    _close(got, want, f"{family} decode at {SPREAD}")
+
+
+@pytest.mark.parametrize("family", list(SEQ_CASES))
+def test_seq_split_decode_collectives(ranks, family):
+    """No all-gather of a cache in a decode step: none of them has a
+    cache shard's trailing dims (kh, S / pieces, hd), which the whole-cache
+    path gathered twice an attention layer.  The merge's all-reduces, in
+    each of the ``len(SPREAD)`` steps, an attention layer and a mesh dim
+    that splits the sequence (group 2): the lse's max, (b_local, h)
+    float32, and the sum of the weighted outputs beside their weights,
+    (b_local, h, hd + 1).  qwen3-8b: batch 2 split over ``data``, 2 layers
+    of 4 heads of 16, the sequence over ``model`` (32 a device): 2 x 5 =
+    10 of each.  zamba2-7b: batch 1, 2 applications of the shared block
+    (4 heads of 16), the sequence over both dims (16 a device): 2 x 2 x 5
+    = 20 of each.  Other all-reduces (the weights' pending sums) have
+    other shapes."""
+    cfg = _cfg(family)
+    hd = cfg.resolved_head_dim()
+    _, each, _ = ranks[f"seq-{family}"]
+    pieces, b_local, calls = {"dense": (2, 1, 2), "hybrid": (4, 1, 4)}[family]
+    tail = (cfg.num_kv_heads, S // pieces, hd)
+    gathers = [shape for kind, shape, _ in each if kind == "all-gather"]
+    assert gathers and not [g for g in gathers if g[-3:] == tail]
+    lse, acc = (b_local, cfg.num_heads), (b_local, cfg.num_heads, hd + 1)
+    merged = [(shape, n) for kind, shape, n in each
+              if kind == "all-reduce" and shape in (lse, acc)]
+    want = calls * len(SPREAD)
+    assert sorted(merged) == sorted([(lse, 2)] * want + [(acc, 2)] * want)
 
 
 def test_sharded_bf16_step_matches_jax(ranks, jax_setup):

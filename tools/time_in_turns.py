@@ -11,6 +11,10 @@ committed one in turns, on one NVIDIA card.
     git show <commit>:src/repro_torch/kernels/csrc/wkv6_bwd.cu \\
         > _archive/wkv6_bwd_variant.cu
     python3 tools/time_in_turns.py wkv6_bwd _archive/wkv6_bwd_variant.cu
+    git show <commit>:src/repro_torch/kernels/csrc/flash_decode.cu \\
+        > _archive/flash_decode_variant.cu
+    python3 tools/time_in_turns.py decode _archive/flash_decode_variant.cu \\
+        --no-lse-arg
 
 The variant is built with the port's nvcc flags into
 ``build/repro_torch_kernels/variants/`` and loaded with ctypes.  Each of
@@ -22,6 +26,15 @@ CUDA graph (``chip_smoke._time_ms``) over four sets of inputs.
 variant, the committed kernel as the serve path calls it (no lse) and as
 the training path calls it (with lse).  ``--no-lse-arg`` takes the C
 interface from before the forward had an ``lse`` argument.
+
+``decode``: ``flash_decode`` at qwen3-8b's serve shape (b 4, 32 heads on
+8 of 128, one call a layer of a 36-layer float32 cache of 544 positions,
+bf16 q), and at the per-device block of the ``decode_32k`` cell on the
+16 x 16 mesh (b 8, 32 heads on 8 of 128, 2048 positions, bf16); the runs
+are the variant, the committed kernel as the serve path calls it (no lse)
+and as a cache shard's partial (with lse).  The variant's output must be
+bitwise the committed one's.  ``--no-lse-arg`` takes the C interface
+from before the decode had an ``lse`` argument.
 
 ``wkv6_bwd``: the WKV6 backward kernel on the first batch of chip_smoke's
 rwkv6-3b trainer phase (4 x 1024, 40 heads of 64, chunk 64; the data
@@ -154,6 +167,63 @@ def run_fwd(smi: str, src: str, no_lse_arg: bool) -> dict:
     return _summary(smi, [b, s, h, kh, d], _in_turns(pa, runs, sets, 40))
 
 
+def _decode_sets(b, h, kh, S, d, dt, layers: int) -> list:
+    """``layers`` calls' inputs: one layer's slice each of a (layers, b, S,
+    kh, d) cache of ``dt``, bf16 q, every position live."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    kc = torch.randn((layers, b, S, kh, d), generator=gen,
+                     device="cuda").to(dt)
+    vc = torch.randn((layers, b, S, kh, d), generator=gen,
+                     device="cuda").to(dt)
+    q = torch.randn((b, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    clen = torch.full((b,), S, dtype=torch.int32, device="cuda")
+    return [(q, kc[i].transpose(1, 2), vc[i].transpose(1, 2), clen)
+            for i in range(layers)]
+
+
+def run_decode(smi: str, src: str, no_lse_arg: bool) -> dict:
+    from repro_torch.kernels import flash_decode as fd
+    fn = _build_variants({"variant": (src, [])})["variant"] \
+        .flash_decode_launch
+    argtypes = list(fd._kernel().argtypes)
+    fn.argtypes = argtypes[:5] + argtypes[6:] if no_lse_arg else argtypes
+    fn.restype = ctypes.c_int
+    variant = fn
+    if no_lse_arg:
+        def variant(*args):
+            if args[5] is not None:
+                raise ValueError("this variant writes no log-sum-exp")
+            return fn(*args[:5], *args[6:])
+    committed = fd._kernel()
+
+    def with_lse(*a):
+        return fd.flash_decode(*a, return_lse=True)
+    runs = {"variant": (variant, fd.flash_decode),
+            "committed": (committed, fd.flash_decode),
+            "committed+lse": (committed, with_lse)}
+    shapes = {"serve": (cs.BATCH, 32, 8, cs.PROMPT + cs.GEN, 128,
+                        torch.float32, 36),
+              "decode_32k block": (8, 32, 8, 2048, 128, torch.bfloat16, 4)}
+    result = {}
+    for tag, (b, h, kh, S, d, dt, layers) in shapes.items():
+        sets = _decode_sets(b, h, kh, S, d, dt, layers)
+        outs = {}
+        for name in ("variant", "committed"):
+            fd._kernel = lambda k=runs[name][0]: k
+            outs[name] = fd.flash_decode(*sets[0])
+        fd._kernel = lambda: committed
+        bitwise = torch.equal(outs["variant"], outs["committed"])
+        print(f"[turns] {tag}: variant vs committed output bitwise equal: "
+              f"{bitwise}", flush=True)
+        if not bitwise:
+            raise AssertionError(f"{tag}: the variant's output differs")
+        result[tag] = _summary(smi, [b, h, kh, S, d, str(dt)[6:]],
+                               _in_turns(fd, runs, sets, 10 * layers),
+                               bitwise_equal=bitwise)
+    return result
+
+
 def _launch_ms(module, kernel, fn, sets: list, calls: int) -> dict:
     """Device ms of each launch a call of ``fn`` makes with
     ``module._kernel`` set to ``kernel``, from torch.profiler over
@@ -262,10 +332,12 @@ def run_wkv6_bwd(smi: str, src: str) -> dict:
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("kernel", choices=["fwd", "bwd", "wkv6_bwd"])
+    parser.add_argument("kernel",
+                        choices=["fwd", "bwd", "wkv6_bwd", "decode"])
     parser.add_argument("variant", help="path of the variant .cu")
     parser.add_argument("--no-lse-arg", action="store_true",
-                        help="fwd: the variant's C entry has no lse argument")
+                        help="fwd, decode: the variant's C entry has no "
+                        "lse argument")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_in_turns: needs an NVIDIA card")
@@ -277,6 +349,8 @@ def main():
         result = run_fwd(smi, args.variant, args.no_lse_arg)
     elif args.kernel == "bwd":
         result = run_bwd(smi, args.variant)
+    elif args.kernel == "decode":
+        result = run_decode(smi, args.variant, args.no_lse_arg)
     else:
         result = run_wkv6_bwd(smi, args.variant)
     print(json.dumps(result))
