@@ -148,18 +148,19 @@ Phases (any failure raises, and the exit code is not 0):
                run (``CUT_PROMPT``: the serve flow replays the prompt one
                host-bound decode step a token); then the
                MoE family at the same batch: granite-moe-3b-a800m (32
-               layers, 40 experts padded to 48, top 8, tied embeddings) at
-               full width and depth, and qwen3-moe-30b-a3b (128 experts,
-               top 8) at full width with 24 of its 48 layers (a cut for
-               memory: 48 layers drawn in float32 are 120 GB); then the
-               rest of the dense family: yi-9b at full width and depth,
-               granite-20b with 28 of 52 layers and qwen3-32b with 31 of 64
-               (cuts for memory); then zamba2-7b (81 Mamba2 layers and 13
+               layers, 40 experts padded to 48, top 8, tied embeddings) and
+               qwen3-moe-30b-a3b (48 layers, 128 experts, top 8); then the
+               rest of the dense family: yi-9b, granite-20b (52 layers) and
+               qwen3-32b (64); then zamba2-7b (81 Mamba2 layers and 13
                applications of one shared attention block) and
                whisper-medium (float32 frame embeddings of 1500 frames; then
                4 decode steps against the prefill's real cross cache, which
-               the serve flow never reads, ROADMAP C5) at full width and
-               depth.  Every
+               the serve flow never reads, ROADMAP C5), each at full width
+               and depth.  ``serve.run`` draws the weights straight into
+               bf16, a layer of a stacked leaf at a time, so no float32
+               tree is made: each run prints its peak beside its served
+               weights' bytes, and fails if the model holds other bytes.
+               Every
                kernel's launch count is set to 0 just before each run and
                read just after; the counts must show the path went through
                the kernels.
@@ -242,9 +243,9 @@ every path
 (``trainer:qwen3-8b`` is phase 8, ``trainer:paper-llama-12b`` and
 ``trainer:paper-llama-12b:backbone_balance`` phase 9,
 ``trainer:paper-tmoe-25b`` phase 12, ``serve:granite-moe-3b-a800m`` and
-``serve:qwen3-moe-30b-a3b:24-of-48-layers`` the MoE serve runs,
-``serve:yi-9b``, ``serve:granite-20b:28-of-52-layers`` and
-``serve:qwen3-32b:31-of-64-layers`` the dense ones,
+``serve:qwen3-moe-30b-a3b`` the MoE serve runs,
+``serve:yi-9b``, ``serve:granite-20b`` and ``serve:qwen3-32b`` the dense
+ones,
 ``trainer:rwkv6-3b`` phase 13,
 ``trainer:qwen3-32b:4-of-64-layers`` phase 14,
 ``serve:zamba2-7b`` and ``serve:whisper-medium`` the last two families'
@@ -401,15 +402,14 @@ VLM_ARCH = "paper-llama-12b"
 VLM_PARAMS = 16_470_664_704
 VLM_TRAIN_LAYERS, VLM_TRAIN_PARAMS = 6, 3_220_498_944
 VLM_BACKBONE_STEPS = 4
-# the MoE family: granite-moe-3b-a800m served at full width and depth;
-# qwen3-moe-30b-a3b served at full width with MOE_SERVE_LAYERS of its 48
-# layers (drawn in float32 before the bf16 cast, each layer is 2.49 GB: 48
-# do not fit one card, 24 and the embeddings take ~62 GB); the paper's
-# tMoE-25B backbone trained at full width with TMOE_TRAIN_LAYERS of its 42
-# layers from phase 8's plane (16 B a parameter: 3 layers and the
-# embeddings are 2.99B parameters, 47.9 GB before the step's activations)
-GRANITE_ARCH, MOE_ARCH, MOE_SERVE_LAYERS = ("granite-moe-3b-a800m",
-                                            "qwen3-moe-30b-a3b", 24)
+# the MoE family: granite-moe-3b-a800m and qwen3-moe-30b-a3b served at
+# full width and depth (every serve run draws its weights in bf16, a layer
+# of a stacked leaf at a time: qwen3-moe-30b-a3b's 48 layers are 56.9 GiB
+# so, where a float32 draw would be 113.7); the paper's tMoE-25B backbone
+# trained at full width with TMOE_TRAIN_LAYERS of its 42 layers from phase
+# 8's plane (16 B a parameter: 3 layers and the embeddings are 2.99B
+# parameters, 47.9 GB before the step's activations)
+GRANITE_ARCH, MOE_ARCH = "granite-moe-3b-a800m", "qwen3-moe-30b-a3b"
 TMOE_ARCH, TMOE_TRAIN_LAYERS, TMOE_TRAIN_PARAMS = ("paper-tmoe-25b", 3,
                                                    2_991_699_968)
 # RWKV6 training: rwkv6-3b at full width and depth, all 32 layers, trained
@@ -421,22 +421,16 @@ TMOE_ARCH, TMOE_TRAIN_LAYERS, TMOE_TRAIN_PARAMS = ("paper-tmoe-25b", 3,
 # depths the remat loop also trains.
 RWKV_TRAIN_LAYERS = 32
 RWKV_PARAMS_BY_LAYERS = {24: 2_408_666_112, 32: 3_099_703_296}
-# the rest of the dense family: yi-9b served at full width and depth;
-# granite-20b (MQA: 48 q heads on one kv head) and qwen3-32b (head_dim 80)
-# served at full width with DENSE_SERVE_LAYERS of their 52 and 64 layers (a
-# cut for memory: drawn in float32 before the bf16 cast, 28.2B and 30.5B
-# parameters are 113 and 122 GB; the cut keeps each near the 15.6B
-# parameters of the qwen3-moe-30b-a3b serve run); qwen3-32b trained from
+# the rest of the dense family: yi-9b, granite-20b (MQA: 48 q heads on one
+# kv head) and qwen3-32b (head_dim 80) served at full width and depth (52.5
+# and 56.8 GiB of bf16 weights for the last two); qwen3-32b trained from
 # phase 8's plane with QWEN32_TRAIN_LAYERS of its 64 layers (16 B a
 # parameter: 3.36B, 1.56B of them embeddings, are 53.8 GB before the step's
 # activations), so the backward runs at d 80 on a trained path
 YI_ARCH, GRANITE20_ARCH, QWEN32_ARCH = "yi-9b", "granite-20b", "qwen3-32b"
-DENSE_SERVE_LAYERS = {GRANITE20_ARCH: 28, QWEN32_ARCH: 31}
 QWEN32_TRAIN_LAYERS, QWEN32_TRAIN_PARAMS = 4, 3_364_664_960
 RWKV_TRAIN_PATH = f"trainer:{RWKV_ARCH}"
 QWEN32_TRAIN_PATH = f"trainer:{QWEN32_ARCH}:{QWEN32_TRAIN_LAYERS}-of-64-layers"
-GRANITE20_SERVE_PATH = (f"serve:{GRANITE20_ARCH}:"
-                        f"{DENSE_SERVE_LAYERS[GRANITE20_ARCH]}-of-52-layers")
 # the last two families.  zamba2-7b (81 Mamba2 layers, one shared attention
 # block of 32 heads of 112 after every 6): served at full width and depth;
 # trained from phase 8's plane with ZAMBA_TRAIN_LAYERS of its 81 layers (a
@@ -467,13 +461,6 @@ WHISPER_TRAIN_PATH = f"train:{WHISPER_ARCH}"
 LOSS_VOCAB, LOSS_STEPS, LOSS_LR, LOSS_GAP_SHARE = 4096, 19, 3e-4, 0.5
 EXAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "examples", "train_e2e_torch.py")
-# the training rows' documents: the text-token log-normal (mu, sigma) of
-# each source of coyo_like_specs(4), the group the JAX package's training
-# launcher reads by default (src/repro/launch/train.py:58), as
-# src/repro/data/sources.py:43-53 draws them from default_rng(0); the
-# lengths carry Fig. 2's skew (most documents short, a long tail)
-COYO_TEXT = ((3.0821770123928727, 1.2), (2.7099165813171173, 1.2),
-             (3.0639814654603077, 1.2), (3.2610434542726607, 1.2))
 
 
 def log(msg: str):
@@ -1088,37 +1075,48 @@ def _check_reduced_rwkv():
 
 
 # ------------------------------------------------------ 3. train checks
-def _data_plane_segs(rng, b, s):
-    """Packed training rows as the data plane makes them: each document
-    from one of ``COYO_TEXT``'s sources, chosen uniformly (the launcher's
-    equal-weight schedule), with its text length drawn as
-    src/repro/data/sources.py:73-75 draws it and cut to ``s``
-    (src/repro/data/packing.py:56); documents are drawn until they hold as
-    many tokens as the rows, then packed first-fit in draw order, and a
-    document that fits no row is dropped (packing.py:39-69).  Segment ids
-    count from 1 in each row; the rest of a row is padding (0)."""
-    seg = np.zeros((b, s), np.int32)
-    fill, count, drawn = [0] * b, [0] * b, 0
+def _packed_rows(rng, b: int, s: int, vocab: int = 2):
+    """``b`` training rows of ``s`` tokens as the data plane packs them
+    (a ``data.packing.PackedBatch``).  Each document's source is one of
+    ``data.sources.coyo_like_specs(4)`` (the group the training launcher
+    reads by default), chosen uniformly (the launcher's equal-weight
+    schedule), and its text length is drawn by ``sample_lengths``, with
+    Fig. 2's skew (most documents short, a long tail); documents are drawn
+    until they hold as many tokens as the rows, each cut to ``s``.  Then
+    their tokens, uniform on [1, ``vocab``), after every length, so the
+    rows' layout does not depend on ``vocab`` (2 for a caller that reads
+    only the layout).  ``pack_sequences`` packs them first-fit in draw
+    order, dropping a document that fits no row: segment ids from 1 in
+    each row, positions restarting at each document, next-token labels,
+    -1 on each document's last token and on padding."""
+    from types import SimpleNamespace
+    from repro_torch.data.packing import pack_sequences
+    from repro_torch.data.sources import coyo_like_specs, sample_lengths
+    specs, docs, drawn = coyo_like_specs(4), [], 0
     while drawn < b * s:
-        mu, sigma = COYO_TEXT[rng.integers(len(COYO_TEXT))]
-        n = min(int(np.clip(rng.lognormal(mu, sigma), 1, 8192)), s)
+        spec = specs[rng.integers(len(specs))]
+        n = min(int(sample_lengths(spec, 1, rng)[0][0]), s)
+        docs.append((f"{spec.name}/{len(docs)}", n))
         drawn += n
-        row = next((r for r in range(b) if fill[r] + n <= s), None)
-        if row is None:
-            continue
-        count[row] += 1
-        seg[row, fill[row]:fill[row] + n] = count[row]
-        fill[row] += n
-    return seg
+    return pack_sequences([SimpleNamespace(
+        sample_id=name, tokens=rng.integers(1, vocab, n).astype(np.int32))
+        for name, n in docs], s, b)
+
+
+def _card_batch(rows) -> dict:
+    """A ``PackedBatch``'s tokens, segment ids, positions and labels on
+    the card."""
+    return {k: torch.as_tensor(getattr(rows, k), device="cuda")
+            for k in ("tokens", "segment_ids", "positions", "labels")}
 
 
 def _lm_batch(rng, vocab: int, seg: np.ndarray,
               next_token: bool = False) -> dict:
-    """A packed LM batch on the card: positions restart at every segment;
-    labels -1 on padding and, as tests/conftest.make_lm_batch makes them,
-    the tokens themselves, or with ``next_token`` each segment's next
-    tokens and -1 on its last, as the data plane packs them
-    (src/repro/data/packing.py:66)."""
+    """A packed LM batch on the card with a layout made by hand (``seg``,
+    not the data plane's: ``_packed_rows`` gives those): positions restart
+    at every segment; labels -1 on padding and, as tests/conftest.
+    make_lm_batch makes them, the tokens themselves, or with
+    ``next_token`` each segment's next tokens and -1 on its last."""
     b, s = seg.shape
     tokens = rng.integers(1, vocab, (b, s)).astype(np.int32)
     pos = np.zeros((b, s), np.int32)
@@ -1410,8 +1408,7 @@ def _check_full_width_grads(arch: str = ARCH, **cut):
     model = build_model(cfg, torch.Generator(device="cuda").manual_seed(5))
     state = init_train_state(model)
     rng = np.random.default_rng(5)
-    batch = _lm_batch(rng, cfg.vocab_size,
-                      _data_plane_segs(rng, 2, TRAIN_SEQ), next_token=True)
+    batch = _card_batch(_packed_rows(rng, 2, TRAIN_SEQ, cfg.vocab_size))
     loss_fn = make_loss_fn(model)
 
     def run():
@@ -1544,7 +1541,7 @@ def _check_wkv6_bwd():
         return torch.tensor(rng.normal(size=tuple(a.shape)),
                             dtype=torch.float32, device="cuda") * 0.5
     b, s, h, dk = TRAIN_BATCH, TRAIN_SEQ, 40, 64
-    seg = _data_plane_segs(rng, b, s)
+    seg = _packed_rows(rng, b, s).segment_ids
     args = _wkv6_inputs(rng, b, s, h, dk, seg)
     dout = dout_like(args[0])
     name = f"wkv6_bwd b={b} s={s} h={h} dk={dk} chunk=64, data-plane rows"
@@ -1803,8 +1800,7 @@ def _check_moe_full_width_grads():
     model = build_model(cfg, torch.Generator(device="cuda").manual_seed(5))
     state = init_train_state(model)
     rng = np.random.default_rng(5)
-    batch = _lm_batch(rng, cfg.vocab_size,
-                      _data_plane_segs(rng, 2, TRAIN_SEQ), next_token=True)
+    batch = _card_batch(_packed_rows(rng, 2, TRAIN_SEQ, cfg.vocab_size))
     loss_fn = make_loss_fn(model)
 
     def run():
@@ -1899,8 +1895,8 @@ def _time_granite_bwd():
     data plane's documents, beside SDPA's backward; logged, not a record
     (no granite-20b training path runs)."""
     from repro_torch.configs import get_config
-    seg = _data_plane_segs(np.random.default_rng(TRAIN_SEED), TRAIN_BATCH,
-                           TRAIN_SEQ)
+    seg = _packed_rows(np.random.default_rng(TRAIN_SEED), TRAIN_BATCH,
+                       TRAIN_SEQ).segment_ids
     rec = _time_packed_attention_bwd(get_config(GRANITE20_ARCH), None, seg)
     log(f"[time] packed_attention_bwd at {GRANITE20_ARCH}'s heads (48 on 1 "
         f"of 128), {TRAIN_BATCH} x {TRAIN_SEQ}: ms={rec['ms']:.4f} "
@@ -1949,7 +1945,7 @@ def _check_hybrid_attention():
     short = np.repeat(np.arange(1, 301), rng.integers(3, 40, 300))[:300]
     short = np.stack([short, short]).astype(np.int32)
     serve = np.ones((BATCH, PROMPT), np.int32)
-    train = _data_plane_segs(rng, TRAIN_BATCH, TRAIN_SEQ)
+    train = _packed_rows(rng, TRAIN_BATCH, TRAIN_SEQ).segment_ids
     for dt in TOL:
         seg = _segs(rng, 2, 1000)
         _check_pa(rng, 2, h, h, 1000, 1000, d, dt, True, seg, seg, what)
@@ -2183,41 +2179,44 @@ def _train_want(cfg, steps: int) -> dict:
     return _want(packed_attention=fwd * n, packed_attention_bwd=n)
 
 
-def phase_serve(arch: str, layers: int | None = None,
-                prompt: int = CUT_PROMPT) -> tuple[dict, dict]:
-    """Serve ``arch`` at full width through ``serve.main``, or with its
-    first ``layers`` layers (a cut for memory) through ``serve.run``, on
+def phase_serve(arch: str, prompt: int = CUT_PROMPT) -> tuple[dict, dict]:
+    """Serve ``arch`` at full width and depth through ``serve.main`` on
     ``BATCH`` prompts of ``prompt`` tokens, with every kernel's count set
-    to 0 just before and read just after."""
+    to 0 just before and read just after; its peak beside the bytes of the
+    served weights."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch.models.model_zoo import model_defs
+    from repro_torch.models.params import param_bytes
+    from repro_torch.train.train_step import COMPUTE_DTYPE
     cfg = get_config(arch)
-    depth = cfg.num_layers
+    weights = param_bytes(model_defs(cfg), COMPUTE_DTYPE)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()
     t0 = time.perf_counter()
-    if layers is None:
-        out = serve.main(["--arch", arch, "--batch", str(BATCH),
-                          "--prompt-len", str(prompt), "--gen", str(GEN)])
-    else:
-        cfg = cfg.replace(num_layers=layers)
-        arch = f"{arch}:{layers}-of-{depth}-layers"
-        out = serve.run(cfg, BATCH, prompt, GEN, torch.device("cuda"))
+    out = serve.main(["--arch", arch, "--batch", str(BATCH),
+                      "--prompt-len", str(prompt), "--gen", str(GEN)])
     counts = _launch_counts()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    log(f"[serve] {arch} layers={cfg.num_layers} of {depth} "
-        f"d_model={cfg.d_model} batch={BATCH} prompt={prompt} gen={GEN} "
-        f"({wall:.1f}s in serve, weights drawn and cast included)")
+    log(f"[serve] {arch} layers={cfg.num_layers} d_model={cfg.d_model} "
+        f"batch={BATCH} prompt={prompt} gen={GEN} ({wall:.1f}s in serve, "
+        "weights drawn included)")
     log(f"[serve] {arch} prefill_s={out['prefill_s']:.4f} "
         f"decode_tok_s={out['decode_tok_s']:.2f} "
         f"(decode_s={out['decode_s']:.4f} for {GEN} steps x {BATCH} seqs) "
-        f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB)")
+        f"max_memory_allocated={peak} B ({peak / 2**30:.2f} GiB), served "
+        f"weights {weights} B ({weights / 2**30:.2f} GiB)")
     log(f"[serve] {arch} greedy tokens: {out['tokens'].tolist()}")
     log(f"[serve] {arch} launches on the path: {counts}")
+    held = sum(p.numel() * p.element_size()
+               for p in out["model"].parameters())
+    if held != weights:
+        raise AssertionError(f"the served model holds {held} B of weights, "
+                             f"not the {weights} B of its bf16 tree")
     if cfg.family == "ssm":     # the WKV kernel once per layer, in prefill
         want = _want(wkv6=cfg.num_layers)
     else:
@@ -2670,9 +2669,9 @@ def _events():
 def phase_train() -> tuple[dict, np.ndarray]:
     """qwen3-8b at full width with TRAIN_LAYERS of its 36 layers, AdamW on
     float32 master weights, TRAIN_STEPS steps through ``train_step`` on one
-    packed batch of TRAIN_BATCH x TRAIN_SEQ (the data plane's documents,
-    ``_data_plane_segs``; next-token labels, -1 on padding and on each
-    segment's last token), every kernel's count set to 0 just before the
+    packed batch of TRAIN_BATCH x TRAIN_SEQ (the data plane's documents
+    and packer, ``_packed_rows``; next-token labels, -1 on padding and on
+    each segment's last token), every kernel's count set to 0 just before the
     steps and read just after; then one more step by its parts (forward,
     backward, update) between CUDA events, and one step under the
     profiler."""
@@ -2694,8 +2693,8 @@ def phase_train() -> tuple[dict, np.ndarray]:
     opt_cfg = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=1000)
     step = make_train_step(model, opt_cfg)
     rng = np.random.default_rng(TRAIN_SEED)
-    seg = _data_plane_segs(rng, TRAIN_BATCH, TRAIN_SEQ)
-    batch = _lm_batch(rng, cfg.vocab_size, seg, next_token=True)
+    rows = _packed_rows(rng, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    seg, batch = rows.segment_ids, _card_batch(rows)
     lengths = [np.bincount(r[r > 0]).tolist()[1:] for r in seg]
     flat = np.concatenate(lengths)
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -3543,8 +3542,8 @@ def main_bwd():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _check_packed_attention_bwd()
-    seg = _data_plane_segs(np.random.default_rng(TRAIN_SEED), TRAIN_BATCH,
-                           TRAIN_SEQ)
+    seg = _packed_rows(np.random.default_rng(TRAIN_SEED), TRAIN_BATCH,
+                       TRAIN_SEQ).segment_ids
     return [_with_paths(_time_packed_attention_bwd(get_config(ARCH), None,
                                                    seg), {})]
 
@@ -3577,11 +3576,7 @@ def main_vlm():
     _check_vlm_flash_decode(np.random.default_rng(1))
     _check_vlm_packed_attention_bwd(np.random.default_rng(7))
     _check_reduced_vlm()
-    paths = {}
-    paths[f"serve:{VLM_ARCH}"], served = phase_serve(VLM_ARCH)
-    phase_trace_prefill(VLM_ARCH, served)
-    phase_trace_decode(VLM_ARCH, served)
-    del served
+    paths = _serve_traced((VLM_ARCH,))
     trained, seg = phase_trainer_vlm()
     paths.update(trained)
     log(f"[done] launches by path: {paths}")
@@ -3596,43 +3591,29 @@ def main_vlm():
                 own=train)]
 
 
-MOE_SERVE_PATH = f"serve:{MOE_ARCH}:{MOE_SERVE_LAYERS}-of-48-layers"
+def _serve_traced(archs, prompt: int = CUT_PROMPT) -> dict:
+    """Each of ``archs`` served whole (``phase_serve``) with its prefill
+    and decode traces, its weights freed before the next is drawn.
+    Returns each path's counts."""
+    paths = {}
+    for arch in archs:
+        paths[f"serve:{arch}"], served = phase_serve(arch, prompt)
+        phase_trace_prefill(arch, served)
+        phase_trace_decode(arch, served)
+        del served
+    return paths
 
 
 def phase_serve_moe() -> dict:
-    """granite-moe-3b-a800m at full width and depth, then qwen3-moe-30b-a3b
-    with MOE_SERVE_LAYERS of its 48 layers, each with its prefill and decode
-    traces.  Returns each path's counts."""
-    paths = {}
-    paths[f"serve:{GRANITE_ARCH}"], served = phase_serve(GRANITE_ARCH)
-    phase_trace_prefill(GRANITE_ARCH, served)
-    phase_trace_decode(GRANITE_ARCH, served)
-    del served          # frees the 7.8 GB of bf16 granite-moe weights
-    paths[MOE_SERVE_PATH], served = phase_serve(MOE_ARCH, MOE_SERVE_LAYERS)
-    name = MOE_SERVE_PATH[len("serve:"):]
-    phase_trace_prefill(name, served)
-    phase_trace_decode(name, served)
-    return paths        # frees the 31.2 GB of bf16 qwen3-moe weights
+    """granite-moe-3b-a800m and qwen3-moe-30b-a3b at full width and depth,
+    each with its prefill and decode traces."""
+    return _serve_traced((GRANITE_ARCH, MOE_ARCH))
 
 
 def phase_serve_dense() -> dict:
-    """yi-9b at full width and depth, then granite-20b and qwen3-32b at full
-    width with DENSE_SERVE_LAYERS of their layers, each with its prefill
-    and decode traces.  Returns each path's counts."""
-    from repro_torch.configs import get_config
-    paths = {}
-    paths[f"serve:{YI_ARCH}"], served = phase_serve(YI_ARCH)
-    phase_trace_prefill(YI_ARCH, served)
-    phase_trace_decode(YI_ARCH, served)
-    del served          # frees the 17.7 GB of bf16 yi-9b weights
-    for arch, layers in DENSE_SERVE_LAYERS.items():
-        path = (f"serve:{arch}:{layers}-of-{get_config(arch).num_layers}-"
-                "layers")
-        paths[path], served = phase_serve(arch, layers)
-        phase_trace_prefill(path[len("serve:"):], served)
-        phase_trace_decode(path[len("serve:"):], served)
-        del served
-    return paths
+    """yi-9b, granite-20b and qwen3-32b at full width and depth, each with
+    its prefill and decode traces."""
+    return _serve_traced((YI_ARCH, GRANITE20_ARCH, QWEN32_ARCH))
 
 
 def main_moe():
@@ -3703,7 +3684,7 @@ def main_dense():
     paths[QWEN32_TRAIN_PATH], seg = phase_trainer_dense()
     log(f"[done] launches by path: {paths}")
     qwen32, granite = get_config(QWEN32_ARCH), get_config(GRANITE20_ARCH)
-    train, serve = QWEN32_TRAIN_PATH, GRANITE20_SERVE_PATH
+    train, serve = QWEN32_TRAIN_PATH, f"serve:{GRANITE20_ARCH}"
     return [_with_paths(_time_packed_attention(
                 qwen32, paths[train]["packed_attention"], seg), paths,
                 own=train),
@@ -3803,8 +3784,8 @@ def _check_remat_reduced():
                     prm.data.normal_(0.0, 0.1, generator=gen)
             state = init_train_state(model)
             rng = np.random.default_rng(7)
-            batch = _lm_batch(rng, cfg.vocab_size, _data_plane_segs(
-                rng, TRAIN_BATCH, 256), next_token=True)
+            batch = _card_batch(_packed_rows(rng, TRAIN_BATCH, 256,
+                                             cfg.vocab_size))
             if cfg.family == "audio":
                 batch["enc_embeds"] = _frames(rng, TRAIN_BATCH, cfg,
                                               torch.bfloat16)
@@ -3965,8 +3946,8 @@ def phase_train_whisper() -> dict:
     step = make_train_step(model, AdamWConfig(peak_lr=1e-3, warmup_steps=2,
                                               total_steps=1000))
     rng = np.random.default_rng(TRAIN_SEED)
-    seg = _data_plane_segs(rng, TRAIN_BATCH, TRAIN_SEQ)
-    batch = _lm_batch(rng, cfg.vocab_size, seg, next_token=True)
+    rows = _packed_rows(rng, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    seg, batch = rows.segment_ids, _card_batch(rows)
     batch["enc_embeds"] = _frames(rng, TRAIN_BATCH, cfg, torch.bfloat16)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     log(f"[whisper-train] {WHISPER_ARCH} encoder {cfg.encoder_layers} + "
@@ -4159,8 +4140,8 @@ def _wkv6_records(paths: dict) -> list:
     ``wkv6_bwd`` at its training shape on the data plane's documents."""
     from repro_torch.configs import get_config
     rwkv = get_config(RWKV_ARCH)
-    seg = _data_plane_segs(np.random.default_rng(TRAIN_SEED), TRAIN_BATCH,
-                           TRAIN_SEQ)
+    seg = _packed_rows(np.random.default_rng(TRAIN_SEED), TRAIN_BATCH,
+                       TRAIN_SEQ).segment_ids
     return [_with_paths(_time_wkv6(rwkv, None), paths),
             _with_paths(_time_wkv6_bwd(rwkv, None, seg), paths)]
 
@@ -4526,10 +4507,10 @@ def phase_shard():
     from repro_torch.models import moe
     t0 = time.perf_counter()
     rng = np.random.default_rng(TRAIN_SEED)
-    seg = _data_plane_segs(rng, TRAIN_BATCH, TRAIN_SEQ)
     for arch, layers in ((ARCH, SHARD_LAYERS), (MOE_ARCH, SHARD_MOE_LAYERS)):
         cfg = get_config(arch).replace(num_layers=layers)
-        batch = _lm_batch(rng, cfg.vocab_size, seg, next_token=True)
+        batch = _card_batch(_packed_rows(rng, TRAIN_BATCH, TRAIN_SEQ,
+                                         cfg.vocab_size))
         calls = []
         local = moe.batch_local
         moe.batch_local = lambda *a, **k: calls.append(1) or local(*a, **k)
@@ -4637,17 +4618,17 @@ def _check_fd_partial(rng, b, h, kh, S, d, c_dt, lens, what: str):
 
 
 def _seq_model():
-    """qwen3-8b at full width and depth as ``serve.run`` builds it (bf16
-    steps on float32 weights from one seed) and its BATCH x PROMPT
-    prompt."""
+    """qwen3-8b at full width and depth as ``serve.run`` builds it (its
+    weights drawn from one seed in the dtypes the steps compute in) and its
+    BATCH x PROMPT prompt."""
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import build_model
     from repro_torch.train.train_step import (
-        make_decode_step, make_prefill_step,
+        COMPUTE_DTYPE, make_decode_step, make_prefill_step,
     )
     cfg = get_config(ARCH)
     model = build_model(cfg, torch.Generator("cuda").manual_seed(0),
-                        torch.float32)
+                        COMPUTE_DTYPE)
     rng = np.random.default_rng(0)
     tokens = rng.integers(1, cfg.vocab_size, (BATCH, PROMPT)).astype(
         np.int32)
@@ -4856,15 +4837,8 @@ def main():
     phase_seqdecode(served)
     stamp("phase 3d")
     del served          # frees the 16.4 GB of bf16 qwen3-8b weights
-    paths[f"serve:{RWKV_ARCH}"], served = phase_serve(RWKV_ARCH,
-                                                      prompt=PROMPT)
-    phase_trace_prefill(RWKV_ARCH, served)
-    phase_trace_decode(RWKV_ARCH, served)
-    del served          # frees the 6.2 GB of bf16 rwkv6-3b weights
-    paths[f"serve:{VLM_ARCH}"], served = phase_serve(VLM_ARCH)
-    phase_trace_prefill(VLM_ARCH, served)
-    phase_trace_decode(VLM_ARCH, served)
-    del served          # frees the 32.9 GB of bf16 paper-llama-12b weights
+    paths.update(_serve_traced((RWKV_ARCH,), PROMPT))
+    paths.update(_serve_traced((VLM_ARCH,)))
     paths.update(phase_serve_moe())
     paths.update(phase_serve_dense())
     paths.update(phase_serve_hybrid())

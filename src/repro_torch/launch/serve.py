@@ -30,7 +30,10 @@ JAX launcher draws them; prefill reads them, and the replay, as in the JAX
 launcher, feeds the tokens alone.  So a served Whisper decodes against a
 cross cache of zeros, never the audio: the JAX launcher's behaviour
 (ROADMAP.md, C5), kept so that the greedy tokens equal JAX's.  On the card
-attention and the WKV always run through the CUDA kernels.
+attention and the WKV always run through the CUDA kernels.  The weights
+are drawn from seed 0 straight into the dtypes the steps compute in
+(``models.params.init_param``): the cast of the float32 tree the same seed
+draws, bit for bit, without that tree ever existing.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import build_model
+from repro_torch.train import train_step
 from repro_torch.train.train_step import make_decode_step, make_prefill_step
 
 
@@ -79,7 +83,10 @@ def run(cfg, b: int, s: int, gen: int, device: torch.device) -> dict:
     caller can rerun the prefill or go on stepping at the run's own cache
     length."""
     generator = torch.Generator(device=device).manual_seed(0)
-    model = build_model(cfg, generator, torch.float32)
+    # drawn straight into the dtypes the steps compute in, a layer of a
+    # stacked leaf at a time: no float32 copy of the tree is ever made, so
+    # every config serves whole on one 80 GB card
+    model = build_model(cfg, generator, train_step.COMPUTE_DTYPE)
 
     max_len = s + gen
     rng = np.random.default_rng(0)
@@ -101,7 +108,8 @@ def run(cfg, b: int, s: int, gen: int, device: torch.device) -> dict:
             np.float32) * 0.02
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
-    # both steps share one bf16 cast of the weights; the fp32 tree is freed
+    # both steps share the bf16 weights (a float32 tree handed in by a
+    # caller is cast here, leaf by leaf)
     prefill = make_prefill_step(model)
     decode = make_decode_step(model)
 

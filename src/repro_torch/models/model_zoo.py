@@ -123,7 +123,9 @@ def model_defs(cfg: ModelConfig) -> dict:
 
 def build_model(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.float32) -> Model:
-    """A model with weights drawn from ``generator``, on its device."""
+    """A model with weights drawn from ``generator``, on its device, held
+    as a model computing in ``dtype`` holds them (``params.init_param``:
+    float32 leaves of rank > 1 in ``dtype``, the rest as drawn)."""
     defs = model_defs(cfg)
     return Model(cfg, pdefs.init_params(defs, generator, dtype,
                                         generator.device))

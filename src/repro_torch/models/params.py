@@ -57,24 +57,52 @@ def _fan_in(shape: tuple[int, ...]) -> int:
     return int(np.prod(shape[:-1]))
 
 
+def compute_dtype(dtype, shape, compute) -> torch.dtype:
+    """The cast rule of a model computing in ``compute`` (JAX's
+    ``_cast_for_compute``): a float32 leaf of rank > 1 is held in
+    ``compute``, any other leaf keeps ``dtype``.  A stacked leaf's rank
+    counts its ``layers`` dim, so the per-layer norm scales are cast and
+    ``final_norm`` (rank 1) stays float32.  ``dtype`` and ``shape`` are a
+    leaf's, or a ParamDef's container dtype and shape."""
+    return compute if dtype == torch.float32 and len(shape) > 1 else dtype
+
+
 def init_param(defn: ParamDef, generator: torch.Generator, dtype,
                device) -> torch.Tensor:
-    dt = defn.dtype or dtype
+    """Draw one leaf in float32 (its def's own dtype, if it has one) and
+    hold it as a model computing in ``dtype`` holds it (``compute_dtype``).
+
+    A leaf stacked over ``layers`` is drawn a slice of its first dim at a
+    time, in order, into the leaf it is held in, so no float32 piece
+    larger than one slice is made: a bf16 model of 64 layers never holds
+    a float32 copy of a stacked leaf.  The values are the cast of the
+    float32 leaf drawn the same way, bit for bit."""
+    dt = defn.dtype or torch.float32
+    held = compute_dtype(dt, defn.shape, dtype)
     if defn.init == "zeros":
-        return torch.zeros(defn.shape, dtype=dt, device=device)
+        return torch.zeros(defn.shape, dtype=held, device=device)
     if defn.init == "ones":
-        return torch.ones(defn.shape, dtype=dt, device=device)
-    if defn.init == "uniform":
-        lim = defn.scale or 1.0
-        out = torch.empty(defn.shape, dtype=dt, device=device)
-        return out.uniform_(-lim, lim, generator=generator)
-    if defn.init == "scaled":  # 1/sqrt(fan_in) normal
+        return torch.ones(defn.shape, dtype=held, device=device)
+    if defn.init == "scaled":  # 1/sqrt(fan_in) normal, fan-in of the stack
         std = (defn.scale or 1.0) / math.sqrt(max(_fan_in(defn.shape), 1))
     else:
         std = defn.scale if defn.scale is not None else 0.02
-    out = torch.randn(defn.shape, dtype=torch.float32, device=device,
-                      generator=generator)
-    return out.mul_(std).to(dt)
+
+    def draw(shape):
+        if defn.init == "uniform":
+            lim = defn.scale or 1.0
+            out = torch.empty(shape, dtype=dt, device=device)
+            return out.uniform_(-lim, lim, generator=generator)
+        out = torch.randn(shape, dtype=torch.float32, device=device,
+                          generator=generator)
+        return out.mul_(std).to(dt)
+
+    if defn.axes[:1] != (LAYERS,):
+        return draw(defn.shape).to(held)
+    out = torch.empty(defn.shape, dtype=held, device=device)
+    for piece in out:
+        piece.copy_(draw(defn.shape[1:]))
+    return out
 
 
 def tree_map(fn: Callable, tree):
@@ -93,9 +121,11 @@ def tree_leaves(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
-def init_params(defs, generator: torch.Generator, dtype=torch.bfloat16,
+def init_params(defs, generator: torch.Generator, dtype=torch.float32,
                 device="cuda"):
-    """Materialize a ParamDef tree into tensors on ``device``.
+    """Materialize a ParamDef tree into tensors on ``device``, held as a
+    model computing in ``dtype`` holds them (``init_param``): float32 gives
+    the float32 tree, bf16 its cast for serving, drawn without it.
 
     Leaves are drawn in sorted-key order from one ``generator``, which must
     live on ``device``.  The numbers differ from ``jax.random``'s; a test
@@ -135,3 +165,10 @@ def stacked(defs, n: int):
 
 def param_count(defs) -> int:
     return sum(int(np.prod(d.shape)) for _, d in tree_leaves(defs))
+
+
+def param_bytes(defs, dtype=torch.float32) -> int:
+    """The bytes of the tree ``init_params(defs, ..., dtype)`` holds."""
+    return sum(int(np.prod(d.shape)) * compute_dtype(
+        d.dtype or torch.float32, d.shape, dtype).itemsize
+        for _, d in tree_leaves(defs))

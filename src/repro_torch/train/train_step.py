@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models.model_zoo import Model
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import compute_dtype, tree_leaves, tree_map
 from repro_torch.sharding.logical import dtensor_mesh, placed_like, sharded
 from repro_torch.train.optimizer import (
     AdamWConfig, AdamWState, adamw_update, init_adamw,
@@ -53,9 +53,8 @@ def init_train_state(model: Model) -> TrainState:
 
 def _compute_copy(params: dict) -> dict:
     """A bf16 copy of every float32 leaf of rank > 1, through autograd."""
-    return tree_map(lambda p: p.to(COMPUTE_DTYPE)
-                    if p.dtype == torch.float32 and p.dim() > 1 else p,
-                    params)
+    return tree_map(lambda p: p.to(compute_dtype(p.dtype, p.shape,
+                                                 COMPUTE_DTYPE)), params)
 
 
 def _vocab_local(fn, logits, *rest, reduce_op: str):
@@ -172,17 +171,18 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig = AdamWConfig()):
 def _cast_for_compute(model: Model) -> Model:
     """Cast every float32 leaf of rank > 1 to ``COMPUTE_DTYPE``, in place.
 
-    The rule is JAX's, applied to the same stacked shapes: the per-layer
-    norm scales (and RWKV6's ``u``, ``w0`` and ``mu_*``) are rank 2 or more
+    The rule is JAX's (``params.compute_dtype``, which the draw of a served
+    model applies too), on the same stacked shapes: the per-layer norm
+    scales (and RWKV6's ``u``, ``w0`` and ``mu_*``) are rank 2 or more
     because of the ``layers`` dim, so they become bf16 too, while
-    ``final_norm`` (rank 1) stays float32.  JAX casts
-    inside every jitted call; the port casts once, leaf by leaf, so the
-    float32 tree is freed as it goes instead of a second full-size copy
-    being made per call.  The cast is deterministic, so the numbers are
-    the same.
+    ``final_norm`` (rank 1) stays float32.  JAX casts inside every jitted
+    call; the port casts once, leaf by leaf, so the float32 tree is freed
+    as it goes instead of a second full-size copy being made per call.
+    The cast is deterministic, so the numbers are the same.  A model drawn
+    in ``COMPUTE_DTYPE`` (``serve.run``) is already cast: nothing changes.
     """
     for name, p in list(model.named_parameters()):
-        if p.dtype != torch.float32 or p.dim() <= 1:
+        if compute_dtype(p.dtype, p.shape, COMPUTE_DTYPE) == p.dtype:
             continue
         if dtensor_mesh(p) is None:
             p.data = p.data.to(COMPUTE_DTYPE)

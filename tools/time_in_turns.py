@@ -256,8 +256,8 @@ def run_bwd(smi: str, src: str) -> dict:
         fn.argtypes, fn.restype = committed.argtypes, ctypes.c_int
         kernels[name] = fn
     cfg = get_config(cs.ARCH)
-    seg = cs._data_plane_segs(np.random.default_rng(cs.TRAIN_SEED),
-                              cs.TRAIN_BATCH, cs.TRAIN_SEQ)
+    seg = cs._packed_rows(np.random.default_rng(cs.TRAIN_SEED),
+                          cs.TRAIN_BATCH, cs.TRAIN_SEQ).segment_ids
     sets = cs._bwd_sets(cfg, seg)
     outs = {}
     for name in ("variant", "committed"):
